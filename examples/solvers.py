@@ -3,7 +3,7 @@
 The reference's vestigial ITSOL heritage (src/samples/data-types.h:30-302
 declares FGMRES/BiCGSTAB structs nothing uses) points at the intended
 workload: Krylov solvers calling SpMV hundreds of times per matrix.  These
-examples show the inspect-once/execute-many contract doing that work on TPU:
+examples show the inspect-once/execute-many contract doing that work:
 the handle compiles once, every iteration is a device-side call, and the
 whole solver loop can live under one ``lax.while_loop``.
 
@@ -30,9 +30,9 @@ def main():
     import jax
     from spmv_tpu.io import generate
 
-    # SPD system: diagonally dominant random matrix.  f32 on TPU (f64 is
-    # software-emulated there); f64 elsewhere.
-    dtype = np.float32 if jax.default_backend() == "tpu" else np.float64
+    # SPD system: diagonally dominant random matrix, in f64 (native on
+    # the GPU and the CPU alike).
+    dtype = np.float64
     a = generate.diag_plus_random(5000, nnz_per_row=8, seed=1).astype(dtype)
     sym = st.CsrMatrix.from_coo(  # symmetrize: A + A^T
         a.m, a.n,
@@ -42,14 +42,13 @@ def main():
     h = st.create_handle(sym)
     b = np.random.default_rng(2).standard_normal(sym.n)
     b = b.astype(dtype)
-    x, res, iters = cg(h, b, tol=1e-5 if dtype == np.float32 else 1e-6)
+    x, res, iters = cg(h, b, tol=1e-6)
     print(f"CG: method={h.method_name}, {iters} iterations, "
           f"residual {res:.2e}")
     check = np.asarray(st.spmv(h, x)) - np.asarray(b)
     print(f"   |Ax-b| = {np.abs(check).max():.2e}")
 
-    xb, resb, itb = bicgstab(h, b, tol=1e-5 if dtype == np.float32
-                             else 1e-6)
+    xb, resb, itb = bicgstab(h, b, tol=1e-6)
     print(f"BiCGSTAB: {itb} iterations, residual {resb:.2e}")
 
     lam, _ = power_iteration(h, iters=50)

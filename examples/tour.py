@@ -1,6 +1,6 @@
 """Feature tour: every major capability in one script.
 
-Run on any backend (CPU works; TPU uses the Pallas fast paths):
+Run on any backend (CPU works; a GPU runs the same XLA plans):
 
     python examples/tour.py
 """
@@ -16,11 +16,6 @@ import jax.numpy as jnp
 
 import spmv_tpu as st
 from spmv_tpu.io import generate
-
-
-def jax_backend_is_cpu() -> bool:
-    import jax
-    return jax.default_backend() == "cpu"
 
 
 def main():
@@ -48,7 +43,7 @@ def main():
     print("tune picked:", h.method_name,
           {k: f"{v*1e3:.2f}ms" for k, v in timings.items()})
 
-    # -- f64 (double-float Pallas tier on TPU; plain f64 on CPU) ----------
+    # -- f64 (the reference's primary dtype) -------------------------------
     a64 = generate.clustered(2000, 2000, 16, spread=250, dtype=np.float64)
     h64 = st.create_handle(a64, method=st.Method.SELL_C_SIGMA)
     x64 = np.random.default_rng(2).standard_normal(2000)
@@ -56,30 +51,6 @@ def main():
     ref64 = st.spmv_golden(a64, x64)
     print(f"f64 handle: {h64!r}  maxrel="
           f"{np.abs(y64-ref64).max()/np.abs(ref64).max():.1e}")
-
-    # -- the scattered tier: SELL-8D slot-mode bundles ---------------------
-    # (on TPU the handle routes here automatically; the format is also
-    # usable directly — interpret mode makes it CPU-runnable)
-    from spmv_tpu.formats.sell8d import (estimate_sell8d_auto, pack_sell8d,
-                                         prepare_hybrid)
-    from spmv_tpu.ops.pallas_sell import build_sell8d_fn
-    asc = zoo["scattered"]
-    tiles, cap, spilled, nw = estimate_sell8d_auto(asc, nw=None)
-    p8d, rest = pack_sell8d(asc, max_pad_ratio=60.0, nw=nw)
-    fn = build_sell8d_fn(p8d, interpret=jax_backend_is_cpu())
-    x = np.random.default_rng(3).standard_normal(asc.n).astype(np.float32)
-    y = np.asarray(fn(x))
-    if rest is not None:
-        np.add.at(y, rest[0], rest[2] * x[rest[1]])
-    ref = st.spmv_golden(asc, x)
-    print(f"sell8d nw={nw} pad={p8d.pad_ratio:.2f} mode={p8d.value_mode} "
-          f"relerr={np.abs(y-ref).max()/np.abs(ref).max():.1e}")
-    # heavy-tailed mixes split by row: heavy rows -> row mode, light -> 8D
-    prep = prepare_hybrid(generate.power_law(4000, 4000, 40_000,
-                                             dtype=np.float32, seed=3))
-    if prep is not None:
-        print(f"hybrid split: dense_frac={prep.dense_frac:.2f} "
-              f"(8W tiles {prep.td} + 8D tiles {prep.ts}, nw={prep.nw})")
 
     # -- locality reordering ----------------------------------------------
     scramble = np.random.default_rng(1).permutation(2000)
@@ -95,7 +66,7 @@ def main():
     h2.prepare(st.Method.BALANCED_YID)
     print("re-prepped:", h2.method_name)
 
-    # -- multi-chip (virtual mesh on CPU, real mesh on a pod) -------------
+    # -- multi-device (virtual mesh on CPU, real mesh on several GPUs) -----
     import jax
     if len(jax.devices()) > 1 or jax.default_backend() == "cpu":
         from spmv_tpu.parallel import (build_dist_plan, dist_spmv,
@@ -108,8 +79,8 @@ def main():
 
     # -- the roofline model ------------------------------------------------
     a = zoo["banded"]
-    print("roofline @150 GB/s (csr model):",
-          f"{st.utils.roofline_gflops(a.m, a.n, a.nnz, 150.0):.1f} GFLOP/s")
+    print("roofline @3350 GB/s (csr model, H100 HBM peak):",
+          f"{st.utils.roofline_gflops(a.m, a.n, a.nnz, 3350.0):.1f} GFLOP/s")
 
 
 if __name__ == "__main__":

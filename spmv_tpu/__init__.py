@@ -1,6 +1,6 @@
-"""tpu-spmv: a TPU-native sparse matrix–vector multiplication framework.
+"""spmv_tpu: a sparse matrix–vector multiplication framework in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capability set of the CPU
+Built from scratch in JAX/XLA with the capability set of the CPU
 reference library DevilInChina/spmv (see SURVEY.md): a handle-based
 inspect-once/execute-many SpMV API over CSR matrices, multiple execution
 methods, SELL-C-σ and tiled formats, an auto-tuning inspector, Matrix Market

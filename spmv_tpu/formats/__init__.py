@@ -1,2 +1,2 @@
 """Host-side format conversion and partition planning."""
-from . import partition, sell, sell8w, dia, bcsr, coo2, reorder
+from . import partition, sell, dia, bcsr, reorder

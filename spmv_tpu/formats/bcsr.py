@@ -1,12 +1,10 @@
-"""BCSR: 128×128 dense blocks — the MXU format.
+"""BCSR: 128×128 dense blocks — the dense-block format.
 
 The reference has no blocked format (its vestigial data-types.h:30-302
-declares VBCSR but nothing uses it); on TPU it is the natural systolic-array
-mapping: nonempty 128×128 blocks become dense tiles and SpMV becomes a
-batched (128,128)@(128,) matmul — the MXU does the FLOPs and all irregular
+declares VBCSR but nothing uses it).  Nonempty 128×128 blocks become dense
+tiles and SpMV becomes a batched (128,128)@(128,) product; all irregular
 ops shrink by 128× (one x-block gather and one block-row segment-sum per
-block instead of per nonzero), which neutralizes this device's slow
-gather/scatter path (PERFNOTES.md).
+block instead of per nonzero).
 
 Profitable when block fill (nnz / (nblocks·128²)) is high enough that the
 dense-block traffic (65 KB/block f32, 32 KB bf16) beats the sparse formats;

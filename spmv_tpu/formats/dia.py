@@ -1,10 +1,10 @@
 """DIA (diagonal) format — the zero-gather fast path for banded matrices.
 
 The reference has no DIA format (its SIMD dot products handle bands like any
-row, inner_spmv.h:232-286); on this TPU it is the single most profitable
-specialization: ``y = Σ_d diag_d ⊙ shift(x, offset_d)`` is pure streaming —
-no gather anywhere — and XLA lowers static shifts to fused slices
-(PERFNOTES.md: streaming runs 25-1000× faster than gathers here).
+row, inner_spmv.h:232-286).  Here it is a specialization for banded
+matrices: ``y = Σ_d diag_d ⊙ shift(x, offset_d)`` is pure streaming — no
+gather and no index stream — and XLA lowers static shifts to fused
+slices.
 
 Fill ratio (nnz / (ndiags·m)) gates profitability: padding streams zeros.
 The inspector uses :func:`dia_profile` to decide.

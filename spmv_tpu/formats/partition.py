@@ -1,11 +1,12 @@
-"""Host-side partition planning: the TPU analog of the reference's splitters.
+"""Host-side partition planning: the device analog of the reference's splitters.
 
 The reference computes, at handle-creation time, per-thread work assignments:
 nnz-quantile row boundaries (``init_csrSplitter_balanced``,
 parallel_balanced_spmv.c:39-58), mega-row redistribution plans
 (``parallel_balanced2_get_handle``, parallel_balanced2_spmv.c:55-209) and
 exact-nnz splits with partial-row carries (``init_splitter_balancedYid``,
-parallel_balanced_Yid_spmv.c:16-53).  On TPU there are no threads to assign —
+parallel_balanced_Yid_spmv.c:16-53).  On the device there are no threads to
+assign —
 instead these become *static partition metadata baked into the jitted
 executable*: tile boundaries, padded streams, and row-extraction indices, all
 computed here in numpy once per matrix.
@@ -107,7 +108,7 @@ class Balanced2Plan:
     The reference's Balanced2 exists for rows so heavy they span several
     threads' nnz quantiles: it redistributes them and splits them intra-row,
     reducing per-thread partials serially at the end
-    (parallel_balanced2_spmv.c:55-209, :264-282).  The TPU translation:
+    (parallel_balanced2_spmv.c:55-209, :264-282).  The translation here:
     mega-rows (> ``tile`` nonzeros) become runs of *virtual sub-rows* of at
     most ``tile`` nonzeros each; stage 1 computes every virtual row with the
     ordinary tile-scan extraction, stage 2 folds each row's sub-row run with

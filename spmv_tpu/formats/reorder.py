@@ -1,4 +1,4 @@
-"""Locality / reordering layer — the METIS layer rebuilt for TPU windows.
+"""Locality / reordering layer — the METIS layer rebuilt for x-windows.
 
 Reference: ``HyperGraphInterface.cpp:59-147`` permutes rows by METIS k-way
 partition id at handle-creation time (gated by OPT_LEVEL=3, common.c:144-156)
@@ -6,10 +6,10 @@ and caches the permutation on disk keyed by a matrix token
 (``cache/<token>.bin``, HyperGraphInterface.cpp:22-57).  The caller gathers a
 permuted x in and un-permutes y out (test_spmv.c:95-101, :130-137).
 
-On this TPU the goal is different and sharper: the Pallas windowed-gather
-kernel can only reach an aligned 1024-element x-window per (8,128) tile
-(PERFNOTES.md), so the reorder's job is to cluster each row's column indices
-into few 1024-wide windows.  We implement:
+Here the goal is locality of the x gather: the reorder's job is to cluster
+each row's column indices into few 1024-wide x-windows, so the gathers of
+neighbouring rows hit the same cache lines, and to keep the column spread of
+a row block small enough for the mesh plans' halo exchange.  We implement:
 
 * :func:`rcm_order` — reverse Cuthill-McKee (pure numpy BFS; no external
   graph library in the image) for bandwidth reduction;
@@ -111,8 +111,8 @@ def window_cluster_order(a: CsrMatrix, window: int = 1024,
 
     For each column, find its dominant row-block (the row-block containing
     most of its nonzeros) and sort columns by (dominant block, first row).
-    Columns read together end up in the same 1024-wide x-window — the
-    pack-time objective of the Pallas windowed kernels.  This is the
+    Columns read together end up in the same 1024-wide x-window.  This is
+    the
     cheap-and-cheerful stand-in for the reference's METIS k-way clustering
     (HyperGraphInterface.cpp:90-92).
     """
@@ -325,13 +325,11 @@ def length_order(a: CsrMatrix) -> np.ndarray:
     """Rows sorted by descending nnz — the reference's SELL σ-sort
     (sell_C_Sigma_spmv.c:222) taken global.
 
-    On heavy-tailed (power-law) matrices the natural order packs terribly
-    in SELL-8W: a mega-row's nonzeros all share one lane, forcing depth
-    ~len/8 nearly-empty tiles per window.  Length-sorting clusters heavy
-    rows into the same 128-row slices, so their lane counts balance and
-    tiles fill (measured powerlaw100k: pad estimate 111 → 19.5).  Stable
-    sort keeps equal-length rows in natural order (column locality of the
-    light tail is preserved up to slice granularity).
+    On heavy-tailed (power-law) matrices the natural order pads SELL
+    slices to their one mega-row's depth.  Length-sorting clusters heavy
+    rows into the same 128-row slices, so slice depths follow row lengths.
+    Stable sort keeps equal-length rows in natural order (column locality
+    of the light tail is preserved up to slice granularity).
     """
     return np.argsort(-a.row_lengths.astype(np.int64),
                       kind="stable").astype(np.int64)
@@ -347,7 +345,7 @@ def cached_order(a: CsrMatrix, token: str, kind: str = "rcm",
     # Cheap structure fingerprint: (m, nnz) collisions with a DIFFERENT
     # structure would silently reuse a stale permutation (correctness is
     # unaffected — permute/unpermute is internal — but the locality benefit
-    # and the sell8w pad-gate decisions would be silently lost).
+    # would be silently lost).
     fp_src = np.concatenate([a.rowptr[:: max(a.m // 64, 1)].astype(np.uint64),
                              a.colidx[:: max(a.nnz // 256, 1)].astype(np.uint64)])
     with np.errstate(over="ignore"):

@@ -1,25 +1,27 @@
-"""Chunked SELL-C-σ packing, re-designed for TPU lane geometry.
+"""Chunked SELL-C-σ packing.
 
 Reference: ``sell_C_Sigma_get_handle_Selected`` (sell_C_Sigma_spmv.c:141-247)
 builds σ-sorted, C-row slices stored column-major with −1 column sentinels,
-sized for 4/8-wide AVX2 FMA.  The TPU redesign (v2 — measured on a v5e chip,
-see git history for the bucketed v1):
+sized for 4/8-wide AVX2 FMA.  This layout:
 
-* **C = 128 lanes**: a slice is 128 rows, one per TPU lane; the inner op
-  ``y[0:C] += vals[j, 0:C] * x[cols[j, 0:C]]`` is a full-width VPU FMA fed by
-  XLA's fused-gather pipeline (measured ~160 Gelem/s on v5e vs ~765 GB/s
-  streaming bound).
-* **Depth in sublane chunks of 8**: each slice's depth (max row length in the
-  slice) pads to a multiple of 8 — the f32 sublane tile — instead of a power
-  of two; measured padding drops from ~1.57× to ~1.11× on uniform-random
-  matrices.  All slices pack into ONE flat ``(C_total, 8, 128)`` chunk stream
-  (cols + vals) with a per-chunk slice id, so execution is a single fused
-  gather+FMA+chunk-reduce followed by one small sorted segment-sum over chunk
-  partials — no per-depth bucket dispatch.
+* **C = 128 rows per slice**; the inner op
+  ``y[0:C] += vals[j, 0:C] * x[cols[j, 0:C]]`` is one 128-wide gather+FMA
+  that XLA fuses with the chunk reduction.
+* **Depth in chunks of 8**: each slice's depth (max row length in the
+  slice) pads to a multiple of 8 instead of a power of two, which keeps the
+  padding near 1.1× on uniform-random matrices.  All slices pack into ONE
+  flat ``(C_total, 8, 128)`` chunk stream (cols + vals) with a per-chunk
+  slice id, so execution is a single fused gather+FMA+chunk-reduce followed
+  by one small sorted segment-sum over chunk partials — no per-depth bucket
+  dispatch.
 * **Padding uses column 0 + value 0** (instead of the reference's −1 sentinel
   + branch, sell_C_Sigma_spmv.c:124): gathered garbage × 0 = 0, branch-free.
 * The row scatter (reference scatters ``Y[RowIndex]``, inner_spmv.h:473-475)
   is inverted into one precomputed inverse-permutation *gather*.
+
+The chunk shape (C = 128, depth granularity 8) was tuned on the previous
+accelerator's 8×128 register tile and is untuned on the H100 — an open
+measurement (ROADMAP.md).
 
 With ``sigma <= 1`` (no sorting) this degrades to plain chunked-ELL slices in
 natural row order (identity output order) — used for ``Method_Parallel``.
@@ -35,8 +37,8 @@ from ..types import CsrMatrix, INT_DTYPE
 
 __all__ = ["SellMatrix", "pack_sell", "LANES", "SUBLANES"]
 
-LANES = 128      # slice height C (TPU lane count)
-SUBLANES = 8     # depth granularity (f32 sublane tile)
+LANES = 128      # slice height C (untuned on the H100)
+SUBLANES = 8     # depth granularity (untuned on the H100)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +73,8 @@ def pack_sell(a: CsrMatrix, c: int = LANES, sigma: int = 32 * LANES,
     knob the inspector sets.
     """
     if c != LANES:
-        raise ValueError(f"c must be {LANES} on TPU")
+        raise ValueError(f"c must be {LANES}: the chunk stream is "
+                         f"(nchunks, {SUBLANES}, {LANES})")
     m_pad = max(-(-a.m // c) * c, c)
     lengths = np.zeros(m_pad, dtype=np.int64)
     lengths[: a.m] = a.row_lengths

@@ -1,6 +1,6 @@
 """Handle lifecycle + method dispatch — the framework core.
 
-TPU re-design of the reference's L3/L4 (``src/src_spmv/common.c``,
+Re-design of the reference's L3/L4 (``src/src_spmv/common.c``,
 ``include/spmv.h``): ``spmv_create_handle_all_in_one`` runs the *inspector*
 (format conversion + partition planning, all host-side numpy), places the
 resulting static-shape arrays on device, and binds a jitted executable;
@@ -16,11 +16,10 @@ Method_Parallel    chunked ELL slices in natural order (sell machinery, σ=1)
 Method_Balanced    two-level equal-nnz tile scan + carry scan
 Method_Balanced2   equal-nnz tile scan, tile sized for mega-row splitting
 Method_BalancedYid single global prefix scan (exact-nnz split, zero fix-ups)
-Method_SellCSigma  Pallas windowed-gather SELL-8W (VPU, f32, TPU) or
-                   chunked SELL-C-σ (XLA fallback)
-Method_Csr5Spmv    two-pass COO2 Pallas (VPU, f32, TPU) or tiled scan (XLA)
-Method_Dia         banded shifted-stream FMAs (Pallas or XLA, zero gathers)
-Method_Bcsr        128×128 dense blocks via MXU batched matmuls
+Method_SellCSigma  chunked SELL-C-σ (σ-sorted 128-row slices)
+Method_Csr5Spmv    equal-nnz tiled scan (CSR5's tile + calibrator role)
+Method_Dia         banded shifted-stream FMAs (zero gathers)
+Method_Bcsr        128×128 dense blocks via batched matrix-vector products
 Method_Auto        inspector picks one of the above from matrix features
 =================  ==========================================================
 """
@@ -29,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import numpy as np
 import jax
@@ -38,7 +37,6 @@ import jax.numpy as jnp
 from .types import CsrMatrix, Method, VectorizedWay, METHOD_NAMES, INT_DTYPE
 from .formats import partition, sell as sell_fmt, dia as dia_fmt
 from .ops import xla_csr
-from .utils.backend import is_tpu as _is_tpu
 
 __all__ = [
     "SpmvHandle",
@@ -57,7 +55,7 @@ def _ensure_x64_if_needed(dtype) -> None:
 
 
 def _acc_dtype(dtype) -> Any:
-    """Accumulation dtype: bf16 storage accumulates in f32 (MXU-style)."""
+    """Accumulation dtype: bf16 storage accumulates in f32."""
     if dtype == jnp.bfloat16:
         return jnp.float32
     return dtype
@@ -74,25 +72,6 @@ def _exec_serial(rows, colidx, vals, x, m):
     return xla_csr.segment_sum_spmv(rows, colidx, vals.astype(acc),
                                     x.astype(acc), m=m)
 
-
-@functools.partial(jax.jit, static_argnames=("nseg",))
-def _exec_rest_sums(seg_ids, cols, vals, x, nseg):
-    """Per-row straggler sums on the COMPACT straggler domain."""
-    p = vals * x.astype(vals.dtype)[cols]
-    return jax.ops.segment_sum(p, seg_ids, num_segments=max(nseg, 1))
-
-
-@functools.partial(jax.jit, static_argnames=("m", "nseg"))
-def _exec_rest_df(uniq_rows, seg_ids, cols, vals, x, m, nseg):
-    """f64 straggler stream without any m-length f64 scatter (see the
-    rest_rows branch of _make_bound)."""
-    p = vals * x.astype(vals.dtype)[cols]
-    s = jax.ops.segment_sum(p, seg_ids, num_segments=max(nseg, 1))
-    sh = s.astype(jnp.float32)
-    sl = (s - sh.astype(s.dtype)).astype(jnp.float32)
-    zh = jnp.zeros(m, jnp.float32).at[uniq_rows].set(sh)
-    zl = jnp.zeros(m, jnp.float32).at[uniq_rows].set(sl)
-    return zh.astype(jnp.float64) + zl.astype(jnp.float64)
 
 
 @jax.jit
@@ -180,28 +159,8 @@ class SpmvHandle:
         return METHOD_NAMES[self.method]
 
     def __repr__(self) -> str:
-        extra = ""
-        if "graph" in self.plan:
-            extra = (f", pallas=graph(hub+8w+8d) "
-                     f"pad={self.plan['pad_ratio']:.2f} "
-                     f"heavy={self.plan['heavy_frac']:.2f}")
-        elif "hybrid" in self.plan:
-            extra = (f", pallas=hybrid(8w+8d) "
-                     f"pad={self.plan['pad_ratio']:.2f} "
-                     f"dense={self.plan['dense_frac']:.2f}")
-        elif "sell8d_stripes" in self.plan:
-            extra = (f", pallas=sell8d-striped"
-                     f"[{len(self.plan['sell8d_stripes'])}] "
-                     f"pad={self.plan['pad_ratio']:.2f}")
-        elif "sell8d" in self.plan:
-            extra = f", pallas=sell8d pad={self.plan['pad_ratio']:.2f}"
-        elif "sell8w" in self.plan:
-            extra = f", pallas=sell8w pad={self.plan['pad_ratio']:.2f}"
-        elif "coo2" in self.plan:
-            extra = (f", pallas=coo2 pad1={self.plan['pad1']:.2f} "
-                     f"pad2={self.plan['pad2']:.2f}")
-        elif "dia_pallas" in self.plan:
-            extra = ", pallas=dia"
+        extra = (f", fallback={self.plan['sell_fallback']}"
+                 if "sell_fallback" in self.plan else "")
         return (f"SpmvHandle({self.method_name}, {self.m}x{self.n}, "
                 f"nnz={self.nnz}, dtype={np.dtype(self.dtype).name}"
                 f"{extra})")
@@ -246,15 +205,6 @@ class SpmvHandle:
 # Plan builders (host-side inspection — reference *_get_handle functions)
 # --------------------------------------------------------------------------
 
-def _pad_allow(soft_cap: float, mem_cap: float, floor: float = 3.0) -> float:
-    """Pad allowance = min(soft_cap, mem_cap) with a convenience floor that
-    NEVER overrides the HBM cap: at huge nnz (mem_cap < floor) the cap wins,
-    keeping the padded tile stream under the documented ~4 GB bound
-    (ADVICE round 2: the old ``max(floor, min(soft, mem))`` let the floor
-    exceed mem_cap once nnz > ~2.2e8)."""
-    return min(max(floor, min(soft_cap, mem_cap)), mem_cap)
-
-
 def _tile_for(nnz: int, nthreads: int, method: Method) -> int:
     """Pick the equal-nnz tile length.
 
@@ -266,8 +216,10 @@ def _tile_for(nnz: int, nthreads: int, method: Method) -> int:
     plan aims for at least that many tiles (each "thread" an equal-nnz
     tile), like the reference's ceil(nnz/T) stride yields T chunks — best
     effort only: tiles never shrink below 256 nnz, so matrices with
-    nnz < 256·min_tiles get fewer (a 256-nnz tile is already below the
-    device's useful dispatch granularity).
+    nnz < 256·min_tiles get fewer.
+
+    The 4096/1024 base lengths were tuned on the previous accelerator and
+    are untuned on the H100 (an open measurement, ROADMAP.md).
     """
     base = 4096 if method == Method.BALANCED else 1024
     min_tiles = max(64, nthreads)
@@ -276,614 +228,14 @@ def _tile_for(nnz: int, nthreads: int, method: Method) -> int:
     return base
 
 
-def _graph_gate(a: CsrMatrix, prep) -> bool:
-    """Viability gate for the graph-split plan (formats/graph.py): within
-    the VMEM-resident-x envelope, pad bounded (vs the XLA gather floor a
-    pad ≤ 48 is still a >5x win), spill bounded, f32 (the COO2 heavy pass
-    is f32-only)."""
-    from .ops.pallas_sell import V2_MAX_N
-    return (prep is not None
-            and np.dtype(a.dtype) == np.float32
-            and prep.n_ext <= V2_MAX_N
-            and prep.pad_ratio(a.nnz) <= min(48.0, 6.7e8 / max(a.nnz, 1))
-            and prep.spilled <= 0.02 * a.nnz)
-
-
-# moved to utils/profiling.py (round 5) so the kernel builders'
-# tile-stream transfers are instrumented too; re-exported here for the
-# existing API surface (bench.py, bench/suite.py, sweeps)
+# re-exported for the existing API surface (bench.py, bench/suite.py)
 from .utils.profiling import predeal_profile  # noqa: F401  (re-export)
 from .utils.profiling import dev_put as _dev_put
 
 
-def _append_fold_entries(mat: CsrMatrix, fold_rows: np.ndarray,
-                         val_dtype) -> CsrMatrix:
-    """``[mat | F]`` where ``F[fold_rows[j], j] = 1`` — fold by
-    x-extension.
-
-    The round-4 probes showed EVERY standalone fold kernel pays ~300 ns
-    per grid step and touches ~every output slice, so folding a compact
-    heavy output back costs ~0.3-0.5 ms regardless of tile layout
-    (baselines/probe_r4_fixes3.out ladder).  Instead the fold becomes
-    ordinary 1.0-valued matrix entries in the LIGHT plan — the executor
-    appends the heavy output to the light kernel's input vector per
-    call, and the fold rides the light tiles' existing slices/steps for
-    ~free.  Fold columns land at the END of each row (they exceed every
-    real column id), preserving per-row column order."""
-    m, n = mat.m, mat.n
-    k = len(fold_rows)
-    lens = mat.row_lengths.astype(np.int64)
-    extra = np.bincount(fold_rows, minlength=m).astype(np.int64)
-    rp2 = np.zeros(m + 1, np.int64)
-    np.cumsum(lens + extra, out=rp2[1:])
-    total = int(rp2[-1])
-    cols2 = np.empty(total, dtype=np.int64)
-    vals2 = np.empty(total, dtype=val_dtype)
-    rows_old = np.repeat(np.arange(m, dtype=np.int64), lens)
-    old_pos = rp2[rows_old] + (np.arange(mat.nnz, dtype=np.int64)
-                               - mat.rowptr.astype(np.int64)[rows_old])
-    cols2[old_pos] = mat.colidx
-    vals2[old_pos] = mat.vals
-    order = np.argsort(fold_rows, kind="stable")
-    fr = np.asarray(fold_rows, dtype=np.int64)[order]
-    base = np.arange(k, dtype=np.int64)
-    first = np.ones(k, dtype=bool)
-    first[1:] = fr[1:] != fr[:-1]
-    rank = base - np.maximum.accumulate(np.where(first, base, 0))
-    pos = rp2[fr] + lens[fr] + rank
-    cols2[pos] = n + order                       # column = n + j
-    vals2[pos] = 1.0
-    return CsrMatrix(m, n + k, rp2, cols2.astype(INT_DTYPE), vals2)
-
-
-def _build_graph_plan(a: CsrMatrix, prep) -> Dict[str, Any]:
-    """Pack the graph-split plan (hub x-extension + heavy 8W + light 8D).
-
-    Straggler remainders keep their REMAPPED column ids: the executor
-    feeds every sub-plan x_ext (whose prefix is x), so both natural and
-    hub-remapped ids index it correctly; heavy straggler ROWS are mapped
-    back to original ids through fold_rows (the serial stream adds into
-    the full-m output directly).
-    """
-    from .formats import sell8d as sell8d_fmt, sell8w as sell8w_fmt
-    from .ops.pallas_sell import V2_MAX_N
+def _build_plan(a: CsrMatrix, method: Method,
+                nthreads: int) -> Dict[str, Any]:
     dev = _dev_put
-    mem_cap = 6.7e8 / max(a.nnz, 1)
-    rest_parts = []
-    light_mat = prep.light
-    heavy_plan = None
-    fold_k = 0
-    if prep.heavy is not None:
-        hm = prep.heavy
-        # palette-with-exceptions: duplicate-summed exact values grow a
-        # distinct-value tail that forces a full f32 plane on the whole
-        # heavy stream (webbase: 429 distinct, 21 vs ~10 ns/tile measured
-        # — probe_webbase_r4e); moving the rare values to the rest stream
-        # restores palette mode
-        hm_p, hoff = sell8w_fmt.split_offpalette(hm)
-        if hoff is not None:
-            hr_rows = prep.fold_rows[np.asarray(hoff[0])]
-            rest_parts.append((hr_rows, hoff[1], hoff[2]))
-            hm = hm_p
-        palette_ok = sell8w_fmt.value_palette(
-            np.asarray(hm.vals)) is not None
-        tile_price = 10.0 if palette_ok else 20.0
-        hm2, hrest, hfrac = sell8w_fmt.split_stragglers(hm)
-        if hrest is not None and hfrac <= 0.05:
-            # only split when the tiles it saves beat the rest stream's
-            # measured end-to-end cost (~28 ns/nnz at large m — round-4
-            # webbase decomposition: 8k straggler nnz cost 0.22 ms while
-            # saving fewer tiles than that)
-            saved = (sell8w_fmt.estimate_sell8w_tiles(hm)
-                     - sell8w_fmt.estimate_sell8w_tiles(hm2))
-            if saved * tile_price > len(hrest[0]) * 28.0:
-                # heavy straggler rows live in the compact+sub space —
-                # map to original row ids so the serial stream adds into
-                # y directly
-                hr_rows = prep.fold_rows[np.asarray(hrest[0])]
-                rest_parts.append((hr_rows, hrest[1], hrest[2]))
-                hm = hm2
-        packed_h = sell8w_fmt.pack_sell8w(
-            hm, max_pad_ratio=_pad_allow(48.0,
-                                         6.7e8 / max(hm.nnz, 1)))
-        v2 = sell8w_fmt.plan_v2(packed_h)
-        heavy_plan = {"sell8w": packed_h, "sell8w_v2": v2,
-                      "pad_ratio": packed_h.pad_ratio,
-                      "value_mode": v2.value_mode}
-        # fold by x-extension (see _append_fold_entries): the heavy
-        # output is appended to the light input per call and the fold
-        # rides the light tiles — every standalone fold variant paid
-        # ~300 ns/grid-step across ~every slice (round-4 probes)
-        light_mat = _append_fold_entries(
-            prep.light, prep.fold_rows,
-            np.asarray(prep.light.vals).dtype)
-        fold_k = hm.m
-    packed, rest8d = sell8d_fmt.pack_sell8d(
-        light_mat, max_pad_ratio=_pad_allow(48.0, mem_cap),
-        nw=prep.nw, g="auto", cell_w=prep.nw > 1)
-    rest_parts.insert(0, rest8d)
-    light_plan: Dict[str, Any] = {
-        "sell8d": packed, "pad_ratio": packed.pad_ratio,
-        "value_mode": packed.value_mode, "nw": packed.nw,
-    }
-    plan: Dict[str, Any] = {
-        "graph": True, "light": light_plan,
-        "pad_ratio": prep.pad_ratio(a.nnz),
-        "value_mode": packed.value_mode,
-        "heavy_frac": (prep.heavy.nnz / a.nnz
-                       if prep.heavy is not None else 0.0),
-    }
-    if prep.hub_cols is not None:
-        plan["hub_cols"] = dev(prep.hub_cols.astype(INT_DTYPE))
-    if heavy_plan is not None:
-        plan["heavy"] = heavy_plan
-        plan["fold_k"] = fold_k
-        if (packed.ntiles
-                + heavy_plan["sell8w"].ntiles) * sell8w_fmt.WINDOW \
-                > 6.7e8:
-            raise ValueError("graph plan tile stream exceeds the HBM "
-                             "budget")
-    parts = [r for r in rest_parts if r is not None]
-    if parts:
-        rows_r = np.concatenate([np.asarray(r[0]) for r in parts])
-        cols_r = np.concatenate([np.asarray(r[1]) for r in parts])
-        vals_r = np.concatenate([np.asarray(r[2]) for r in parts])
-        light_plan["rest_rows"] = dev(rows_r.astype(INT_DTYPE))
-        light_plan["rest_cols"] = dev(cols_r.astype(INT_DTYPE))
-        light_plan["rest_vals"] = dev(vals_r)
-        light_plan["rest_frac"] = len(rows_r) / max(a.nnz, 1)
-    return plan
-
-
-def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
-                vectorized: VectorizedWay = VectorizedWay.VPU,
-                hints: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    dev = _dev_put
-    if (method in (Method.SELL_C_SIGMA, Method.PARALLEL)
-            and vectorized != VectorizedWay.NONE
-            and np.dtype(a.dtype) in (np.dtype(np.float32),
-                                      np.dtype(np.float64))
-            and _is_tpu()):
-        # Pallas windowed-gather kernel (ops/pallas_sell.py) — the VPU path,
-        # analog of the reference's AVX2 line-product kernels.  SELL-8W
-        # keeps natural row order, so it serves Method_Parallel's semantics
-        # too.  Falls back to the XLA chunked plan when window-locality
-        # padding explodes (scattered matrices; the reorder layer shrinks
-        # it).
-        from .formats import sell8w as sell8w_fmt
-        from .ops.pallas_sell import V2_MAX_N
-
-        def _finish_rest(plan, rest_parts):
-            """Merge host-side COO remainders into the plan's straggler
-            stream (one XLA gather per exec, never on the main stream)."""
-            parts = [r for r in rest_parts if r is not None]
-            if not parts:
-                return plan
-            rows = np.concatenate([np.asarray(r[0]) for r in parts])
-            cols = np.concatenate([np.asarray(r[1]) for r in parts])
-            vls = np.concatenate([np.asarray(r[2]) for r in parts])
-            plan["rest_rows"] = dev(rows.astype(INT_DTYPE))
-            plan["rest_cols"] = dev(cols.astype(INT_DTYPE))
-            plan["rest_vals"] = dev(vls)
-            plan["rest_frac"] = len(rows) / max(a.nnz, 1)
-            return plan
-
-        def _sell8d_plan(mat, extra):
-            # Slot-mode deep-slice stream (formats/sell8d.py): one tile
-            # slot per row, tiles stack in depth per (1024-row slice,
-            # window) pair — the scattered tier where row-mode SELL-8W
-            # sits at its (slice, window)-pairs pad floor.  The depth-cap
-            # tail + s-table leftovers ride the straggler stream.
-            from .formats import sell8d as sell8d_fmt
-            nw = extra.get("sell8d_nw", 1)
-            mem_cap = sell8d_fmt.slot_stream_budget(
-                mat.vals, nw,
-                np.dtype(mat.dtype) == np.dtype(np.float64)) \
-                / max(mat.nnz, 1)
-            allow = extra.get("sell8d_allow", _pad_allow(32.0, mem_cap))
-            if (mat.n > V2_MAX_N
-                    and len(sell8d_fmt.column_stripe_bounds(mat.n))
-                    <= sell8d_fmt.MAX_STRIPES
-                    and extra.get("sell8d_striped", True)):
-                # column-striped RESIDENT mode (round 4): stripes of
-                # ≤ V2_MAX_N columns keep their x slice in VMEM, so each
-                # tile costs ~29 ns instead of the windowed kernels'
-                # nw·4 KB-DMA 236 ns (8x, _TILE_NS_W).  The caller's
-                # cost gate (_plan_windowed) may veto stripes where the
-                # per-stripe call/x-slice overhead loses to the one-call
-                # windowed kernels — extra["sell8d_striped"]=False.
-                stripes, rest8d, pad = sell8d_fmt.pack_sell8d_striped(
-                    mat, max_pad_ratio=allow, nw=nw, cell_w=nw > 1)
-                vm = max(stripes, key=lambda s: s[3].ntiles)[3].value_mode
-                plan = {"sell8d_stripes": stripes, "pad_ratio": pad,
-                        "value_mode": vm, "nw": nw}
-                return _finish_rest(plan,
-                                    [rest8d, extra.get("rest_host")])
-            packed, rest8d = sell8d_fmt.pack_sell8d(
-                mat, max_pad_ratio=allow, nw=nw, g="auto",
-                max_spill=extra.get("sell8d_max_spill", 0.02),
-                cell_w=nw > 1)
-            plan = {"sell8d": packed, "pad_ratio": packed.pad_ratio,
-                    "value_mode": packed.value_mode, "nw": packed.nw}
-            return _finish_rest(plan, [rest8d, extra.get("rest_host")])
-
-        def _plan_windowed(mat, extra):
-            # AUTO's rescue ladder may have already prepared a graph-split
-            # plan (hub columns + heavy-row COO2, formats/graph.py) —
-            # webbase-shaped matrices where every single-format estimate
-            # explodes
-            gp = (hints or {}).get("graph_prep")
-            if gp is not None and mat is a:
-                try:
-                    return _build_graph_plan(a, gp)
-                except ValueError:
-                    pass
-            # Row-mode (SELL-8W) vs slot-mode (SELL-8D) vs the density-
-            # split hybrid, by estimated tile count: slot mode wins on
-            # scattered structure (fewer pairs × per-row depth), row mode
-            # on clustered windows (measured clustered200k pad 1.92 vs
-            # uniform100k 19.6 → 3.7), and the hybrid on heavy-tailed +
-            # scattered mixes (powerlaw: dense row-window segments to row
-            # mode, the light remainder to wide 8D bundles).
-            # slot-mode routes now cover any n: past V2_MAX_N the windowed
-            # slot kernels take over (the estimators auto-switch to the
-            # DMA-aware cost table, formats/sell8d.py _TILE_NS_W)
-            if np.dtype(mat.dtype) in (np.dtype(np.float32),
-                                       np.dtype(np.float64)):
-                from .formats.sell8d import (cost_tables, dense_tile_ns,
-                                             estimate_sell8d_auto,
-                                             prepare_hybrid,
-                                             slot_stream_budget)
-                df = np.dtype(mat.dtype) == np.dtype(np.float64)
-                # Pairs-floor pre-gate: every windowed format pays ≥1
-                # tile per touched (slice, window) pair, and the coarse
-                # 8D grid (1024-row slices × 8-window bundles) lower-
-                # bounds every finer one.  When even that floor exceeds
-                # all pad allowances AND there are no heavy rows to
-                # split out, skip the (minutes at 32M nnz — measured
-                # 188 s on uniform 4M×4M d=8) estimator cascade and go
-                # straight to the XLA fallback.  PERFNOTES.md "ultra-
-                # sparse pairs-floor regime".
-                if mat.nnz:
-                    ns8d = max(-(-mat.m // 1024), 1)
-                    nb8d = max(-(-mat.n // (1024 * 8)), 1)
-                    if ns8d * nb8d <= (1 << 28):
-                        rows_g = np.repeat(
-                            np.arange(mat.m, dtype=np.int64),
-                            mat.row_lengths)
-                        key_g = ((rows_g >> 10) * nb8d
-                                 + (mat.colidx.astype(np.int64) >> 13))
-                        pairs_lb = int(np.count_nonzero(np.bincount(
-                            key_g, minlength=ns8d * nb8d)))
-                        lens_g = mat.row_lengths
-                        heavy_frac = (lens_g[lens_g >= 16].sum()
-                                      / mat.nnz)
-                        if pairs_lb * sell8w_fmt.WINDOW / mat.nnz > 96:
-                            if heavy_frac < 0.05:
-                                return _sell8w_plan(mat, extra)
-                            # heavy-tailed: the hybrid/graph rescue only
-                            # helps when the HEAVY part has window
-                            # locality — if its own pairs floor is also
-                            # hopeless (Zipf rows over uniformly
-                            # scattered megacolumns: a 4k-nnz row spans
-                            # ~4k windows), every ladder rung below
-                            # would burn ~30 s of estimates at 16M nnz
-                            # to reach the same scan (round-5 measured)
-                            hmask = (lens_g >= 16)[rows_g]
-                            ph = int(np.count_nonzero(np.bincount(
-                                key_g[hmask], minlength=ns8d * nb8d)))
-                            nnz_h = int(np.count_nonzero(hmask))
-                            if (nnz_h == 0
-                                    or ph * sell8w_fmt.WINDOW / nnz_h
-                                    > 96):
-                                return _sell8w_plan(mat, extra)
-                from .formats.sell8d import (MAX_SPILL_STRIPED,
-                                             MAX_STRIPES,
-                                             column_stripe_bounds,
-                                             stripe_overhead_ns)
-                # Past the VMEM-x envelope BOTH slot regimes exist:
-                # column stripes keep x resident (~29 ns/tile + per-
-                # stripe call/x-slice overhead) while the windowed
-                # kernels pay an nw·4 KB DMA per tile but run in ONE
-                # call.  Round 4 routed to stripes unconditionally; the
-                # only timed artifact (d=32 pad-floor) had striped at
-                # 0.83x of windowed, so price both — each regime with
-                # its own nw chooser (resident pricing affords wide
-                # bundles, windowed leans narrow) — and include the
-                # per-exec stripe overhead the round-4 advisor flagged
-                # as dead code.
-                striped = False
-                max_sp = 0.02
-                if (mat.n > V2_MAX_N
-                        and len(column_stripe_bounds(mat.n))
-                        <= MAX_STRIPES):
-                    # BOTH regimes get the elevated scatter-regime spill
-                    # budget (wide bundles collide at uniform scatter
-                    # regardless of x placement; the spill is priced in
-                    # the cost either way) so the veto compares like with
-                    # like — the chosen budget threads to pack time via
-                    # extra["sell8d_max_spill"]
-                    t_res, _cr, sp_res, nw_res = estimate_sell8d_auto(
-                        mat, nw=None, windowed=False,
-                        max_spill=MAX_SPILL_STRIPED)
-                    if sp_res > MAX_SPILL_STRIPED * mat.nnz:
-                        t_res = 0
-                    t_win, _cw, sp_win, nw_win = estimate_sell8d_auto(
-                        mat, nw=None, windowed=True,
-                        max_spill=MAX_SPILL_STRIPED)
-                    if sp_win > MAX_SPILL_STRIPED * mat.nnz:
-                        t_win = 0
-                    ts_res, sns = cost_tables(False, df)
-                    ts_win, _s2 = cost_tables(True, df)
-                    inf = float("inf")
-                    cost_res = (t_res * ts_res[nw_res] + sp_res * sns
-                                + stripe_overhead_ns(mat.n)
-                                ) if t_res else inf
-                    cost_win = (t_win * ts_win[nw_win] + sp_win * sns
-                                ) if t_win else inf
-                    striped = cost_res < cost_win
-                    max_sp = MAX_SPILL_STRIPED
-                    if striped:
-                        t8d, spilled, nw = t_res, sp_res, nw_res
-                    else:
-                        t8d, spilled, nw = t_win, sp_win, nw_win
-                else:
-                    t8d, _cap, spilled, nw = estimate_sell8d_auto(
-                        mat, nw=None, max_spill=max_sp)
-                    if spilled > max_sp * mat.nnz:
-                        t8d = 0                   # 8D alone not viable
-                tried_8d = False
-                if t8d and t8d * sell8w_fmt.WINDOW / mat.nnz <= 4.5:
-                    # clearly good slot-mode pack — skip the (multi-second
-                    # at 4M nnz) row-mode estimate entirely
-                    try:
-                        return _sell8d_plan(
-                            mat, {**extra, "sell8d_nw": nw,
-                                  "sell8d_striped": striped,
-                                  "sell8d_max_spill": max_sp})
-                    except ValueError:
-                        tried_8d = True     # identical retry would fail
-                t8w = sell8w_fmt.estimate_sell8w_tiles(mat)
-                best = min(t for t in (t8w, t8d) if t) if (t8w or t8d) \
-                    else 0
-                if best and best * sell8w_fmt.WINDOW / mat.nnz > 4.0:
-                    # the hint was prepared from the ORIGINAL matrix —
-                    # reusing it on the straggler-retry submatrix would
-                    # double-count the split-out nonzeros
-                    hint = (hints or {}).get("hybrid_prep")
-                    prep = (hint if hint is not None and mat is a
-                            else prepare_hybrid(mat))
-                    if prep is None:
-                        hybrid_wins = False
-                    elif df:
-                        # double-float: compare dtype-aware COSTS, not
-                        # raw tile counts — dense (8W df) and slot (8D
-                        # df) tiles price differently, so the f32
-                        # tile-count gate mis-routes f64 (measured
-                        # powerlaw100k_f64 at the f32 split: 3.98x
-                        # slower than f32 vs the 1.67x kernel ratio)
-                        ts_tab, spill_ns = cost_tables(
-                            mat.n > V2_MAX_N and not striped, True)
-                        cost_8w = (t8w * dense_tile_ns(True)
-                                   if t8w else float("inf"))
-                        cost_8d = (t8d * ts_tab[nw] + spilled * spill_ns
-                                   if t8d else float("inf"))
-                        hybrid_wins = prep.cost < 0.85 * min(cost_8w,
-                                                             cost_8d)
-                    else:
-                        hybrid_wins = prep.tiles < 0.7 * best
-                    if (hybrid_wins
-                            and prep.spilled <= 0.02 * mat.nnz
-                            and prep.tiles * sell8w_fmt.WINDOW <= 6.7e8):
-                        try:
-                            pd = _sell8w_plan(prep.dense_sorted, {})
-                            pd["m_rows"] = prep.dense_sorted.m
-                            pd["fold_rows"] = dev(
-                                prep.fold_rows.astype(INT_DTYPE))
-                            sparse_part = prep.sparse
-                            if (df and "sell8w_v2" in pd
-                                    and "mega_sub_rows" not in pd
-                                    and "rest_rows" not in pd):
-                                # f64 fold by X-EXTENSION: the m-length
-                                # f64 scatter-add costs ~0.9 ms on-chip
-                                # (probe_fold_df) and EVERY standalone
-                                # fold kernel pays ~300 ns/grid-step
-                                # across all touched slices (round-4
-                                # probes).  Instead the executor appends
-                                # yh.f64 + yl.f64 (exact: both are f32
-                                # planes) to x and the LIGHT plan's
-                                # 1.0-valued fold entries gather it —
-                                # the EFT kernel re-splits the sum
-                                # losslessly to df grade.
-                                pd["fold_planes_ext"] = True
-                                sparse_part = _append_fold_entries(
-                                    prep.sparse, prep.fold_rows,
-                                    np.float64)
-                            # the sub-part pad gate scales to its own nnz
-                            # (the whole-plan slot budget was gated above);
-                            # the HBM cap still applies per part — value-
-                            # mode aware like the main sell8d path (the
-                            # legacy 6.7e8 flat cap blocked palette-valued
-                            # sparse parts at ~3x below the pad their 2 B
-                            # slots afford; round-4 advisor)
-                            allow_s = min(
-                                96.0,
-                                max(32.0, 1.5 * prep.ts
-                                    * sell8w_fmt.WINDOW
-                                    / max(prep.sparse.nnz, 1)),
-                                slot_stream_budget(sparse_part.vals,
-                                                   prep.nw, df)
-                                / max(sparse_part.nnz, 1))
-                            psp = _sell8d_plan(
-                                sparse_part,
-                                {**extra, "sell8d_nw": prep.nw,
-                                 "sell8d_allow": allow_s,
-                                 "sell8d_striped": striped,
-                                 "sell8d_max_spill": max_sp})
-                            return {
-                                "hybrid": (pd, psp),
-                                "pad_ratio": prep.tiles
-                                * sell8w_fmt.WINDOW / mat.nnz,
-                                "value_mode": psp.get("value_mode"),
-                                "dense_frac": prep.dense_frac,
-                            }
-                        except ValueError:
-                            pass
-                if t8d and not tried_8d and t8d < 0.7 * t8w:
-                    try:
-                        return _sell8d_plan(
-                            mat, {**extra, "sell8d_nw": nw,
-                                  "sell8d_striped": striped,
-                                  "sell8d_max_spill": max_sp})
-                    except ValueError:
-                        pass
-            return _sell8w_plan(mat, extra)
-
-        def _sell8w_plan(mat, extra):
-            # Mega-row virtual splitting (Balanced2's redistribution at the
-            # format level, parallel_balanced2_spmv.c:115-198): heavy rows
-            # become column-contiguous sub-rows appended after row m; the
-            # executor folds them back with one nsub-element scatter-add.
-            # Only applied when it actually improves the estimated pack:
-            # on an already length-sorted matrix heavy rows share slices
-            # and splitting them apart *hurts* (measured powerlaw100k:
-            # length-sorted 19.5 vs length+split 37.6).
-            mat2, sub_rows = sell8w_fmt.split_megarows(mat)
-            if sub_rows is not None and (
-                    sell8w_fmt.estimate_sell8w_tiles(mat2)
-                    < sell8w_fmt.estimate_sell8w_tiles(mat)):
-                mat = mat2
-                extra = {**extra, "mega_sub_rows": dev(sub_rows)}
-            # Pad allowance: with x resident in VMEM (n <= V2_MAX_N) the
-            # grouped kernel pays only meta/value streams + ~20 ns/tile,
-            # so even pad ~20 beats the XLA gather floor >10x (measured
-            # 4.8 vs 0.25 GF/s on uniform100k); v2w (large n) adds a
-            # 4 KB/tile window DMA, so stay tighter.  Both capped so the
-            # padded tile stream stays under ~4 GB of HBM.
-            mem_cap = 6.7e8 / max(mat.nnz, 1)
-            if mat.n <= V2_MAX_N:
-                allow = _pad_allow(32.0, mem_cap)
-            else:
-                allow = _pad_allow(8.0, mem_cap)
-            if np.dtype(mat.dtype) == np.float64:
-                # f64 = double-float v2 kernel: the greedy placement is
-                # value-independent, so packing twice (vals = hi, vals =
-                # lo) yields slot-aligned hi/lo tile pairs
-                hi = sell8w_fmt.pack_sell8w(mat, max_pad_ratio=allow)
-                hi_back = np.asarray(
-                    mat.vals.astype(np.float32), dtype=np.float64)
-                lo = sell8w_fmt.pack_sell8w(
-                    CsrMatrix(mat.m, mat.n, mat.rowptr, mat.colidx,
-                              (mat.vals - hi_back).astype(np.float32)))
-                v2 = sell8w_fmt.plan_v2(hi, lo_tiles=lo.vals)
-                v2_key = ("sell8w_v2" if mat.n <= V2_MAX_N
-                          else "sell8w_v2w")   # windowed df past VMEM-x
-                plan = {"sell8w": hi, "pad_ratio": hi.pad_ratio,
-                        v2_key: v2, "value_mode": v2.value_mode}
-                extra = dict(extra)
-                rest_host = extra.pop("rest_host", None)
-                plan.update(extra)
-                return _finish_rest(plan, [rest_host])
-            packed = sell8w_fmt.pack_sell8w(mat, max_pad_ratio=allow)
-            plan = {"sell8w": packed, "pad_ratio": packed.pad_ratio}
-            # grouped kernels (16 tiles/step, palette/bf16 value
-            # compression — measured ~21 ns/tile marginal vs ~250 ns for
-            # one-tile steps, baselines/probe*.out): v2 keeps x resident
-            # in VMEM; past V2_MAX_N the v2w variant DMAs per-tile windows
-            v2 = sell8w_fmt.plan_v2(packed)
-            plan["value_mode"] = v2.value_mode
-            if mat.n <= V2_MAX_N:
-                plan["sell8w_v2"] = v2
-            else:
-                plan["sell8w_v2w"] = v2
-            extra = dict(extra)
-            rest_host = extra.pop("rest_host", None)
-            plan.update(extra)
-            return _finish_rest(plan, [rest_host])
-
-        try:
-            return _plan_windowed(a, {})
-        except ValueError:
-            # Hybrid retry: a sprinkle of long-range nonzeros (each costing
-            # a full tile) may be all that fails the gate — route them
-            # through the XLA gather path instead (ELL+COO hybrid).
-            a_main, rest, frac = sell8w_fmt.split_stragglers(a)
-            if rest is not None and frac <= 0.05:
-                try:
-                    return _plan_windowed(a_main, {"rest_host": rest})
-                except ValueError:
-                    pass
-            # Last Pallas resort: the graph split (hub columns + heavy-row
-            # COO2) — the web-graph regime where window/slot layouts all
-            # fail but hub compaction + natural-order COO2 still win
-            # (formats/graph.py; measured pad 77 → 12.6 on webbase1m).
-            if (np.dtype(a.dtype) == np.float32
-                    and (hints or {}).get("graph_prep") is None):
-                from .formats.graph import prepare_graph_split
-                gprep = prepare_graph_split(a)
-                if _graph_gate(a, gprep):
-                    try:
-                        return _build_graph_plan(a, gprep)
-                    except ValueError:
-                        pass
-            # fall through to the XLA plan
-    if (method == Method.CSR5
-            and vectorized != VectorizedWay.NONE
-            and np.dtype(a.dtype) in (np.dtype(np.float32),
-                                      np.dtype(np.float64))
-            and _is_tpu()
-            and a.nnz > 0):
-        # Two-pass COO2 Pallas path (formats/coo2.py) — the CSR5-analog
-        # tiled design for matrices with moderate column scatter; when the
-        # reduce padding explodes, retry as SELL-8D slot-mode bundles (the
-        # round-2 scattered tier) before the XLA tiled scan — CSR5 is the
-        # reference's scattered workhorse and should stay off the gather
-        # floor wherever a tile plan exists.  f64 skips COO2 (its Pallas
-        # two-pass is f32-only) and goes straight to the 8D/hybrid df
-        # retry: the reference's CSR5 is double-ONLY
-        # (src/src_spmv/csr5_spmv.cpp:16-37), so answering an explicit
-        # f64 CSR5 request with the XLA gather-floor scan inverted the
-        # dtype parity (VERDICT round-3 weak #5).
-        from .formats import coo2 as coo2_fmt
-        try:
-            if np.dtype(a.dtype) == np.float64:
-                raise ValueError("COO2 Pallas path is f32-only; f64 CSR5 "
-                                 "rides the SELL-8D/hybrid df tier")
-            packed = coo2_fmt.pack_coo2(a, max_pad2=8.0)
-            return {"coo2": packed,
-                    "pad1": packed.pad_ratio_pass1,
-                    "pad2": packed.pad_ratio_pass2}
-        except ValueError:
-            if a.n <= 2_000_000:
-                # cheap estimates first — the recursion would otherwise
-                # build (and discard) a full XLA SELL plan with O(nnz)
-                # device transfers when the Pallas gates fail anyway
-                from .formats.sell8d import (estimate_sell8d_auto,
-                                             prepare_hybrid)
-                from .formats.sell8w import WINDOW
-                t8d, _c, sp, _w = estimate_sell8d_auto(a, nw=None)
-                ok = (t8d and sp <= 0.02 * a.nnz
-                      and t8d * WINDOW / a.nnz <= 32.0
-                      and t8d * WINDOW <= 6.7e8)
-                sub_hints = hints
-                if not ok:
-                    # heavy-tailed scatter: the row-split hybrid may still
-                    # hold (powerlaw through Method_CSR5 lands here)
-                    prep = prepare_hybrid(a)
-                    if (prep is not None
-                            and prep.tiles * WINDOW / a.nnz <= 32.0
-                            and prep.tiles * WINDOW <= 6.7e8
-                            and prep.spilled <= 0.02 * a.nnz):
-                        ok = True
-                        sub_hints = {**(hints or {}), "hybrid_prep": prep}
-                if ok:
-                    alt = _build_plan(a, Method.SELL_C_SIGMA, nthreads,
-                                      vectorized, hints=sub_hints)
-                    if any(k in alt for k in ("sell8d", "sell8d_stripes",
-                                              "sell8w", "sell8w_v2",
-                                              "sell8w_v2w", "hybrid")):
-                        return alt
-            # fall through to the XLA plan
     if method == Method.SERIAL:
         return {
             "rows": dev(partition.row_ids(a)),
@@ -897,7 +249,7 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
         tile = _tile_for(a.nnz, nthreads, method)
         b2 = partition.build_balanced2_plan(a, tile=tile)
         if b2 is None:
-            plan = _build_plan(a, Method.BALANCED, nthreads, vectorized)
+            plan = _build_plan(a, Method.BALANCED, nthreads)
             plan["demoted"] = True
             return plan
         return {
@@ -945,21 +297,10 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
                 f"DIA unprofitable: {ndiags} diagonals at fill {fill:.3f} "
                 f"(would stream {ndiags * a.m * 4 / 1e6:.0f} MB per exec)")
         d = dia_fmt.pack_dia(a)
-        if vectorized != VectorizedWay.NONE and _is_tpu():
-            # Pallas DIA: x resident in VMEM, read once (ops/pallas_dia.py);
-            # f64 routes to the double-float EFT variant (hi/lo planes);
-            # falls back to the XLA shifted-stream plan out of its envelope.
-            from .ops.pallas_dia import prepare_dia
-            try:
-                parts = prepare_dia(d)
-                return {"dia_pallas": parts, "fill": d.fill,
-                        "offsets": parts["offsets"], "n": a.n}
-            except ValueError:
-                pass  # fall through to the XLA plan
         data = d.data
         if np.dtype(data.dtype) == np.float32:
-            # lossless bf16 diagonals halve the dominant stream (same
-            # rule as the Pallas tier, prepare_dia); _exec_dia upcasts
+            # lossless bf16 diagonals halve the dominant stream;
+            # _exec_dia upcasts
             import ml_dtypes
             dbf = data.astype(ml_dtypes.bfloat16)
             if np.array_equal(dbf.astype(np.float32), data):
@@ -973,13 +314,12 @@ def _build_plan(a: CsrMatrix, method: Method, nthreads: int,
     if method in (Method.PARALLEL, Method.SELL_C_SIGMA):
         sigma = 1 if method == Method.PARALLEL else 32 * sell_fmt.LANES
         # Mega-row matrices explode chunked-ELL padding (depth = slice max
-        # row; measured 104 s pre-deal / 0.003 GFLOP/s on powerlaw at σ=1).
-        # Estimate first and fall back to the tiled scan — the reference
+        # row).  Estimate first and fall back to the tiled scan — the reference
         # eats the same explosion (its σ-sort can't fix a mega-row either).
         from .inspector import _sell_pad_ratio
         if a.nnz and _sell_pad_ratio(a.row_lengths.astype(np.int64),
                                      sigma=max(sigma, 1)) > 8.0:
-            plan = _build_plan(a, Method.BALANCED, nthreads, vectorized)
+            plan = _build_plan(a, Method.BALANCED, nthreads)
             plan["sell_fallback"] = "scan"
             return plan
         s = sell_fmt.pack_sell(a, sigma=sigma)
@@ -999,142 +339,10 @@ def _make_bound(method: Method, plan: Dict[str, Any], m_rows: int):
     """Bind the plan's device arrays into a lean ``x -> y`` closure.
 
     One dict-lookup-free call path per handle: per-call Python work is just
-    the jit dispatch of the pre-bound argument list (measured ~0.09 ms/call
-    saved vs re-resolving the plan per call on v5e).
+    the jit dispatch of the pre-bound argument list.
     """
     p = plan
     m = method
-    if "hybrid" in p:
-        # density-split: dense row-window segments (row mode, compacted to
-        # heavy rows) + scattered remainder (slot mode, natural order);
-        # the compact dense output folds back with one small scatter-add.
-        # Independent pallas calls — the scheduler may overlap them.
-        pd, psp = p["hybrid"]
-        f2 = _make_bound(m, psp, m_rows)
-        if pd.get("fold_planes_ext"):
-            # f64 fold by x-extension: the dense part's raw f32 (hi, lo)
-            # planes sum EXACTLY in f64 (both are f32), the light plan's
-            # 1.0-valued fold entries gather the appended block, and the
-            # EFT kernel re-splits it losslessly — no standalone fold
-            # kernel (~300 ns/grid-step, round-4 probes), no m-length
-            # f64 scatter (~0.9 ms, probe_fold_df)
-            from .ops.pallas_sell import build_sell8w_v2_fn
-            f1p = build_sell8w_v2_fn(pd["sell8w_v2"], planes=True)
-
-            def hyb_df(x):
-                yh, yl = f1p(x)
-                return f2(jnp.concatenate(
-                    [x, yh.astype(jnp.float64)
-                     + yl.astype(jnp.float64)]))
-
-            return hyb_df
-        f1 = _make_bound(m, pd, pd.get("m_rows", m_rows))
-        if "fold_rows" in pd:
-            fr = pd["fold_rows"]
-            return lambda x: f2(x).at[fr].add(f1(x))
-        return lambda x: f1(x) + f2(x)
-    if "graph" in p:
-        # hub-column x-extension + heavy 8W part + light SELL-8D
-        # (formats/graph.py).  x_ext's prefix IS x, so both natural and
-        # hub-remapped column ids index it; the heavy output folds back
-        # BY X-EXTENSION — it is appended after the hubs and the light
-        # plan's 1.0-valued fold entries gather it (_append_fold_entries;
-        # no standalone fold kernel, no m-scale scatter).
-        light_fn = _make_bound(m, p["light"], m_rows)
-        heavy_fn = None
-        if "heavy" in p:
-            m2 = p["heavy"]["sell8w"].m
-            heavy_fn = _make_bound(m, p["heavy"], m2)
-        hub = p.get("hub_cols")
-
-        def graph_fn(x):
-            x_ext = (jnp.concatenate([x, x[hub]]) if hub is not None
-                     else x)
-            if heavy_fn is None:
-                return light_fn(x_ext)
-            yh = heavy_fn(x_ext)
-            return light_fn(jnp.concatenate(
-                [x_ext, yh.astype(x_ext.dtype)]))
-
-        return graph_fn
-    if "sell8d" in p or "sell8d_stripes" in p or "sell8w_v2" in p \
-            or "sell8w_v2w" in p or "sell8w" in p:
-        if "sell8d_stripes" in p:
-            # column-striped resident slot mode: one resident-kernel call
-            # per ≤V2_MAX_N-column stripe on x[lo:hi]; each stripe's
-            # output-block space was compacted to its touched slices at
-            # pack time (the kernels zero a block only on first visit),
-            # so the partials land with small block scatter-adds.
-            from .ops.pallas_sell import build_sell8d_fn
-            nsl_tot = max(-(-m_rows // 1024), 1)
-            parts = [(lo, hi,
-                      None if len(vis) == nsl_tot else jnp.asarray(vis),
-                      build_sell8d_fn(pk))
-                     for lo, hi, vis, pk in p["sell8d_stripes"]]
-            df_out = p.get("value_mode") in ("df", "df16", "palette_df")
-            out_dt = jnp.float64 if df_out else jnp.float32
-
-            def inner(x, _parts=parts, _nsl=nsl_tot, _dt=out_dt):
-                out = jnp.zeros((_nsl, 1024), _dt)
-                for lo, hi, vis, f in _parts:
-                    o = f(x[lo:hi]).reshape(-1, 1024)
-                    # vis None ⇔ the stripe touches every slice (dense
-                    # scatter degenerates to a plain add)
-                    out = (out + o if vis is None
-                           else out.at[vis].add(o))
-                return out.reshape(-1)[:m_rows]
-        elif "sell8d" in p:
-            from .ops.pallas_sell import build_sell8d_fn
-            inner = build_sell8d_fn(p["sell8d"])
-        elif "sell8w_v2" in p:
-            from .ops.pallas_sell import build_sell8w_v2_fn
-            inner = build_sell8w_v2_fn(p["sell8w_v2"])
-        elif "sell8w_v2w" in p:
-            from .ops.pallas_sell import build_sell8w_v2w_fn
-            inner = build_sell8w_v2w_fn(p["sell8w_v2w"])
-        else:
-            from .ops.pallas_sell import build_sell8w_fn
-            inner = build_sell8w_fn(p["sell8w"])
-        if "mega_sub_rows" in p:
-            # fold virtual sub-row outputs back into their origin rows
-            # (tiny scatter-add: nsub elements, not an nnz-stream op)
-            sub_rows = p["mega_sub_rows"]
-            kern = inner
-            inner = lambda x: (lambda y: y[:m_rows].at[sub_rows]
-                               .add(y[m_rows:]))(kern(x))
-        if "rest_rows" in p:
-            # hybrid: straggler nonzeros ride the XLA gather path.  f64
-            # rest must NEVER run an m-length f64 segment/scatter (the
-            # software-f64 path costs ~0.1-0.9 ms regardless of how few
-            # stragglers there are — PERFNOTES round-3 fold ladder):
-            # sum per row on the COMPACT straggler domain in f64, split
-            # the ≤nrest sums into (hi, lo) f32, place them with two
-            # cheap f32 scatter-sets, convert once.  Placement is one
-            # (hi, lo) pair per row — exact to 2^-48, same contract as
-            # the df kernels' own output planes.
-            rr = np.asarray(p["rest_rows"])
-            order = np.argsort(rr, kind="stable")
-            rs = rr[order]
-            first = np.ones(len(rs), dtype=bool)
-            first[1:] = rs[1:] != rs[:-1]
-            seg = np.cumsum(first) - 1
-            uniq = jax.device_put(rs[first].astype(INT_DTYPE))
-            seg_d = jax.device_put(seg.astype(INT_DTYPE))
-            cols_d = jax.device_put(np.asarray(p["rest_cols"])[order])
-            vals_d = jax.device_put(np.asarray(p["rest_vals"])[order])
-            nseg = int(seg[-1]) + 1 if len(seg) else 0
-            if np.dtype(np.asarray(p["rest_vals"]).dtype) == np.float64:
-                return lambda x: inner(x) + _exec_rest_df(
-                    uniq, seg_d, cols_d, vals_d, x, m_rows, nseg)
-            # f32: compact sums + one small scatter-add into y (the
-            # m-length segment_sum cost 0.27 ms at m=1M for 5k stragglers
-            # — baselines/probe_webbase_r4.out)
-            return lambda x: inner(x).at[uniq].add(
-                _exec_rest_sums(seg_d, cols_d, vals_d, x, nseg))
-        return inner
-    if "coo2" in p:
-        from .ops.pallas_coo2 import build_coo2_fn
-        return build_coo2_fn(p["coo2"])
     if m == Method.SERIAL:
         return lambda x: _exec_serial(p["rows"], p["colidx"], p["vals"], x,
                                       m_rows)
@@ -1159,9 +367,6 @@ def _make_bound(method: Method, plan: Dict[str, Any], m_rows: int):
                                     p["inv_pos"], x, p["nslices"],
                                     p["identity_order"])
     if m == Method.DIA:
-        if "dia_pallas" in p:
-            from .ops.pallas_dia import build_dia_fn_from_parts
-            return build_dia_fn_from_parts(p["dia_pallas"])
         return lambda x: _exec_dia(p["data"], x, p["offsets"], m_rows,
                                    p["n"])
     if m == Method.BCSR:
@@ -1219,69 +424,24 @@ def create_handle(a: CsrMatrix,
             raise ValueError(f"unknown reorder kind {reorder!r}")
         a, _ = reorder_mod.reorder_symmetric(a, perm)
     resolved = requested
-    row_perm = None
-    plan_hints: Dict[str, Any] = {}
     if requested == Method.AUTO:
         from .inspector import choose_method
         resolved = choose_method(a)
-        if (resolved == Method.BALANCED and perm is None
-                and 10_000 <= a.nnz and a.n <= 20_000_000):
-            # Last-resort locality: heavy-tailed matrices land here only
-            # because mega-rows explode the SELL-8W pad estimate (one lane
-            # per row).  The σ-sort taken global (length_order) clusters
-            # heavy rows into shared slices; if the re-estimated pad then
-            # passes the high-pad v2 gate, the Pallas kernel beats the XLA
-            # scan ~20x (measured powerlaw100k: pad 111 → 19.5).  Rows-only
-            # reorder: the slice composition only depends on row order, so
-            # x stays natural and the per-exec cost is a single m-element
-            # output gather (vs two for a symmetric reorder; the estimate
-            # is identical, 19.47 vs 19.49 on powerlaw100k).
-            from .formats import reorder as reorder_mod
-            from .formats.sell8d import prepare_hybrid
-            from .formats.sell8w import estimate_sell8w_tiles, WINDOW
-            # Prefer the density-split hybrid on NATURAL order: the
-            # compact dense part folds back with a small scatter-add,
-            # where a global length-sort costs a whole-m inverse gather
-            # per exec (~0.4 ms at 100k rows — measured comparable to the
-            # hybrid's entire kernel time on powerlaw100k).
-            prep = prepare_hybrid(a)    # enclosing gate bounds a.n ≤ 2M
-            if (prep is not None
-                    and prep.tiles * WINDOW / a.nnz
-                    <= min(32.0, 6.7e8 / a.nnz)
-                    and prep.spilled <= 0.02 * a.nnz):
-                resolved = Method.SELL_C_SIGMA   # hybrid in _plan_windowed
-                plan_hints["hybrid_prep"] = prep
-            else:
-                perm_try = reorder_mod.length_order(a)
-                a_try = reorder_mod.reorder_rows(a, perm_try)
-                est = estimate_sell8w_tiles(a_try) * WINDOW / a.nnz
-                if est <= min(32.0, 6.7e8 / a.nnz):
-                    a, row_perm, resolved = (a_try, perm_try,
-                                             Method.SELL_C_SIGMA)
-            if resolved == Method.BALANCED and _is_tpu():
-                # web-graph regime: hub-column split + heavy-row COO2
-                # (formats/graph.py) — the last structure the Pallas
-                # ladder can exploit before conceding the gather floor
-                from .formats.graph import prepare_graph_split
-                gprep = prepare_graph_split(a)
-                if _graph_gate(a, gprep):
-                    resolved = Method.SELL_C_SIGMA
-                    plan_hints["graph_prep"] = gprep
     if (VectorizedWay(vectorized) == VectorizedWay.MXU
             and resolved in (Method.PARALLEL, Method.SELL_C_SIGMA,
                              Method.CSR5) and a.nnz > 0):
-        # MXU = route reductions through the systolic array where the
-        # structure permits: the BCSR batched-matmul plan (the reference's
+        # MXU = route the reduction through dense blocks where the
+        # structure permits: the BCSR batched-product plan (the reference's
         # widest-SIMD slot, VECTOR_AVX512 — which its dispatch never honors;
-        # here the knob is real).  Falls through to the VPU/XLA plans when
-        # the matrix has no dense 128x128 block structure worth densifying.
+        # here the knob is real).  Falls through to the per-nonzero plans
+        # when the matrix has no dense 128x128 block structure worth
+        # densifying.
         # Like the Balanced2 demotion, requested_method records the ask.
         from .formats import bcsr as bcsr_fmt
         nblocks, fill = bcsr_fmt.bcsr_profile(a)
         if fill >= 0.02 and nblocks * bcsr_fmt.BLOCK ** 2 * 8 <= 4e9:
             resolved = Method.BCSR
-    plan = _build_plan(a, resolved, nthreads, VectorizedWay(vectorized),
-                       hints=plan_hints)
+    plan = _build_plan(a, resolved, nthreads)
     if plan.pop("demoted", False):
         resolved = Method.BALANCED    # reference's balanced2 demotion rule
     bound = _make_bound(resolved, plan, a.m)
@@ -1293,13 +453,6 @@ def create_handle(a: CsrMatrix,
         inner = bound
         # y[perm[i]] = y'[i]  ⇔  y = y'[inv]
         bound = lambda x: inner(x[perm_dev])[inv_dev]
-    elif row_perm is not None:
-        # rows-only reorder: x natural, fold y back with one m-gather
-        inv = np.empty_like(row_perm)
-        inv[row_perm] = np.arange(len(row_perm))
-        inv_dev = _dev_put(jnp.asarray(inv.astype(INT_DTYPE)))
-        inner = bound
-        bound = lambda x: inner(x)[inv_dev]
     h = SpmvHandle(
         method=resolved, requested_method=requested,
         dtype=np.dtype(a.dtype) if a.dtype != jnp.bfloat16 else a.dtype,

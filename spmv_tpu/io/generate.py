@@ -96,12 +96,12 @@ def webbase_like(m: int, n: int, nnz_target: int, alpha: float = 2.2,
                  dtype=np.float64, seed: int = 0,
                  exact: bool = True) -> CsrMatrix:
     """Web-graph-shaped ultra-sparse matrix (BASELINE.json config 3's
-    webbase-1M stand-in; this environment has no network egress to fetch
-    the real SuiteSparse file — see COMPARISON.md).
+    webbase-1M stand-in; matrices are generated from a seed, never
+    downloaded).
 
     Mimics the structure a crawl-ordered link matrix actually has, unlike
     a uniform-random ultra-sparse synthetic (which is adversarially
-    structureless — PERFNOTES.md "webbase-shaped" note):
+    structureless):
 
     * power-law out-degrees, gamma ≈ ``alpha`` (a few hub rows, a long
       tail of 1-3 link pages);
@@ -161,8 +161,8 @@ def with_empty_rows(base: CsrMatrix, empty_fraction: float = 0.3,
 def clustered(m: int, n: int, nnz_per_row: int = 32, spread: int = 512,
               dtype=np.float64, seed: int = 0, exact: bool = True) -> CsrMatrix:
     """Locality-rich random matrix: row i's columns within ±spread of the
-    diagonal position — the regime the Pallas windowed kernel (SELL-8W) and
-    the reorder layer target (cols cluster into few 1024-wide x-windows)."""
+    diagonal position — the regime the reorder layer targets (cols cluster
+    into few 1024-wide x-windows)."""
     rng = np.random.default_rng(seed)
     rows = np.repeat(np.arange(m, dtype=np.int64),
                      rng.poisson(nnz_per_row, size=m).clip(0, 2 * spread))
@@ -178,8 +178,8 @@ def clustered(m: int, n: int, nnz_per_row: int = 32, spread: int = 512,
 def block_random(nblk_rows: int, nblk_cols: int, blocks_per_row: int = 4,
                  block: int = 128, fill: float = 0.5, dtype=np.float64,
                  seed: int = 0) -> CsrMatrix:
-    """Block-structured random matrix: dense-ish 128x128 blocks — the BCSR/
-    MXU regime (multiphysics/FEM-style coupling patterns)."""
+    """Block-structured random matrix: dense-ish 128x128 blocks — the BCSR
+    regime (multiphysics/FEM-style coupling patterns)."""
     rng = np.random.default_rng(seed)
     rows_l, cols_l = [], []
     for br in range(nblk_rows):

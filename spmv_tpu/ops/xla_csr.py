@@ -3,7 +3,8 @@
 These are the compiler-lowered equivalents of the reference's method bodies
 (L2, e.g. serial_spmv.c / parallel_balanced_Yid_spmv.c): jittable functions
 over static-shape device arrays built at handle time.  Three design rules,
-all driven by TPU cost model rather than the reference's thread model:
+taken from the device's memory model rather than the reference's thread
+model:
 
 1. the only irregular memory op is the ``x[colidx]`` gather (the same hot
    gather as the reference's ``x[indx[k]]``, inner_spmv.h:255-258);
@@ -45,9 +46,9 @@ def segment_sum_spmv(rows, colidx, vals, x, *, m: int):
     the simplest correct program; the balanced plans below avoid its
     scatter-add.
 
-    The optimization_barrier stops XLA from fusing the gather pipeline into
-    the scatter-add consumer — measured 100× slowdown on v5e without it (the
-    fused loop serializes the gather).
+    The optimization_barrier keeps the gather pipeline out of the
+    scatter-add consumer's fusion: on an H100 the fused form was 1.3×
+    slower (PERF.md, barrier pairs).
     """
     prod = vals * gather_x(x, colidx)
     prod = jax.lax.optimization_barrier(prod)
@@ -110,13 +111,14 @@ def sell_spmv(cols, vals, chunk_ids, inv_pos, x, *, nslices: int,
 
     ``cols``/``vals`` are the (nchunks, 8, 128) chunk stream; one fused
     gather+FMA+chunk-reduce produces per-chunk lane partials (nchunks, 128) —
-    the TPU-native line product (vs inner_spmv.h:411-477's C-wide AVX2
+    a 128-wide line product (vs inner_spmv.h:411-477's C-wide AVX2
     columns) — then a sorted segment-sum folds chunks into their slices and
     one inverse-permutation gather restores row order (the reference
     scatters to ``Y[RowIndex]`` instead, sell_C_Sigma_spmv.c:283-287).
 
     The optimization_barrier keeps the gather pipeline out of the
-    segment-sum's scatter fusion (measured 100× slowdown without it).
+    segment-sum's scatter fusion: on an H100 the fused form was up to 5%
+    slower and never faster (PERF.md, barrier pairs).
     """
     part = jnp.sum(vals * gather_x(x, cols), axis=1)       # (nchunks, 128)
     part = jax.lax.optimization_barrier(part)
@@ -133,10 +135,9 @@ def dia_spmv(data, x, *, offsets: tuple, m: int, n: int):
 
     ``y[i] = Σ_d data[d, i] · x[i + offsets[d]]`` with out-of-range x
     reading zero padding.  All slices are static, so XLA lowers this to
-    fused streaming (the only SpMV shape this device runs at full
-    bandwidth — PERFNOTES.md).  No counterpart in the reference (its AVX2
-    row kernels treat bands like any rows); this is the TPU-native
-    specialization the inspector picks for high diagonal fill.
+    one fused streaming loop with no index stream at all.  No counterpart
+    in the reference (its AVX2 row kernels treat bands like any rows); the
+    inspector picks it for high diagonal fill.
     """
     if not offsets:                      # empty matrix: y = 0
         return jnp.zeros(m, x.dtype)
@@ -155,13 +156,13 @@ def dia_spmv(data, x, *, offsets: tuple, m: int, n: int):
 
 def bcsr_spmv(blocks, block_rows, block_cols, x, *, m: int,
               nblock_rows: int):
-    """Method_Bcsr plan: batched 128×128 dense-block matmuls on the MXU.
+    """Method_Bcsr plan: batched 128×128 dense-block matrix-vector products.
 
     All irregularity collapses to block granularity: one row-gather of x
     blocks and one sorted segment-sum of block partials per 128² block —
-    1/128th the irregular-op count of any per-nonzero plan, which is what
-    makes this the fast path for block-dense matrices on this device
-    (PERFNOTES.md).  The einsum contracts on the MXU.
+    1/128th the irregular-op count of any per-nonzero plan.  The einsum runs
+    at ``Precision.HIGHEST``: a default-precision f32 contraction may run in
+    TF32 on GPUs, which misses the f32 tolerance.
     """
     n_pad = -(-x.shape[0] // 128) * 128
     if n_pad != x.shape[0]:
@@ -171,8 +172,8 @@ def bcsr_spmv(blocks, block_rows, block_cols, x, *, m: int,
     acc_t = blocks.dtype if blocks.dtype == jnp.float64 else jnp.float32
     # bf16 blocks (lossless storage) upcast in-register; accumulate f32
     partial = jnp.einsum("bij,bj->bi", blocks.astype(acc_t), xb,
-                         preferred_element_type=acc_t)
-    partial = jax.lax.optimization_barrier(partial)
+                         preferred_element_type=acc_t,
+                         precision=jax.lax.Precision.HIGHEST)
     y2 = jax.ops.segment_sum(partial, block_rows,
                              num_segments=nblock_rows,
                              indices_are_sorted=True)

@@ -1,19 +1,11 @@
-"""Multi-chip execution layer (mesh row-partitioned SpMV)."""
+"""Multi-device execution layer (mesh row-partitioned SpMV)."""
 
 from .mesh import (DistSpmvPlan, build_dist_plan, dist_spmv,
                    DistDiaPlan, build_dist_dia_plan, dist_dia_spmv,
-                   DistSell8WPlan, build_dist_sell8w_plan, dist_sell8w_spmv,
-                   DistSell8DPlan, build_dist_sell8d_plan, dist_sell8d_spmv,
-                   DistSell8DColsPlan, build_dist_sell8d_cols_plan,
-                   dist_sell8d_cols_spmv,
                    DistAutoPlan, build_dist_auto, dist_auto_spmv,
                    make_mesh_1d)
 
 __all__ = ["DistSpmvPlan", "build_dist_plan", "dist_spmv",
            "DistDiaPlan", "build_dist_dia_plan", "dist_dia_spmv",
-           "DistSell8WPlan", "build_dist_sell8w_plan", "dist_sell8w_spmv",
-           "DistSell8DPlan", "build_dist_sell8d_plan", "dist_sell8d_spmv",
-           "DistSell8DColsPlan", "build_dist_sell8d_cols_plan",
-           "dist_sell8d_cols_spmv",
            "DistAutoPlan", "build_dist_auto", "dist_auto_spmv",
            "make_mesh_1d"]

@@ -3,10 +3,9 @@
 The reference's vestigial ITSOL heritage (src/samples/data-types.h:30-302
 declares CSR/VBCSR/ILU structs and FGMRES/BiCGSTAB enums that nothing uses)
 points at the intended workload: Krylov solvers calling SpMV hundreds of
-times per matrix.  This module makes that first-class on TPU: the handle
-compiles once, the whole solver loop lives in ONE `lax.while_loop` on
-device (so the per-iteration host-sync bubble — PERFNOTES.md — is paid once
-per solve, not per iteration).
+times per matrix.  This module makes that first-class: the handle compiles
+once, the whole solver loop lives in ONE `lax.while_loop` on device (so the
+host synchronizes once per solve, not per iteration).
 
 All solvers accept either an :class:`~spmv_tpu.handle.SpmvHandle` or any
 ``x -> y`` callable (e.g. a distributed plan from ``spmv_tpu.parallel``).

@@ -1,4 +1,4 @@
-"""Core types for the TPU-native SpMV framework.
+"""Core types for the SpMV framework.
 
 Mirrors the capability surface of the reference library's public types
 (``include/spmv_Defines.h:26-68`` in DevilInChina/spmv): the ``SPMV_METHODS``
@@ -26,7 +26,7 @@ __all__ = [
 ]
 
 # The reference fixes BASIC_INT_TYPE to int (spmv_Defines.h:10-12); we fix
-# int32 — TPU-native index width (int64 indices would halve gather throughput).
+# int32 — int64 indices would double the index stream every plan reads.
 INT_DTYPE = np.int32
 
 
@@ -48,9 +48,9 @@ class Method(enum.IntEnum):
     CSR5 = 6
     # Reference has Method_Total_Size=7 and Method_Numa=8 sentinels.
     AUTO = 9
-    # TPU-native extensions (no reference counterpart):
+    # Extensions (no reference counterpart):
     DIA = 10          # diagonal/banded format: shifted-stream FMAs, no gather
-    BCSR = 11         # 128x128 dense blocks via MXU batched matmuls
+    BCSR = 11         # 128x128 dense blocks via batched matrix-vector products
 
 
 #: Reference name strings (common.c:325-333) for CSV-schema parity.
@@ -71,16 +71,15 @@ METHOD_NAMES = {
 class VectorizedWay(enum.IntEnum):
     """Parity with ``VECTORIZED_WAY`` (spmv_Defines.h:18-23).
 
-    On TPU the vector unit is not optional, so these select the *compute
-    backend* instead of the SIMD ISA: ``NONE`` forces the pure-XLA lowering,
-    ``VPU`` selects Pallas vector kernels (the analog of AVX2 dot products),
-    ``MXU`` selects kernels that route reductions through the systolic array
-    (the analog of the reference's widest-SIMD path).
+    Every plan is an XLA program, so ``NONE`` and ``VPU`` run the same plan;
+    the values stay for API and CSV parity.  ``MXU`` routes SELL/CSR5
+    requests to the dense-block BCSR plan where the matrix has block
+    structure (the analog of the reference's widest-SIMD path).
     """
 
-    NONE = 0   # pure XLA (reference: VECTOR_NONE — scalar loops)
-    VPU = 1    # Pallas VPU kernels (reference: VECTOR_AVX2)
-    MXU = 2    # MXU one-hot-matmul reductions (reference: VECTOR_AVX512)
+    NONE = 0   # reference: VECTOR_NONE
+    VPU = 1    # reference: VECTOR_AVX2 (default)
+    MXU = 2    # dense-block BCSR routing (reference: VECTOR_AVX512)
 
 
 VECTORIZED_NAMES = {
@@ -104,7 +103,7 @@ class CsrMatrix:
     Equivalent of the raw ``(m, n, RowPtr, ColIdx, Matrix_Val)`` quintuple the
     reference passes into ``spmv_create_handle_all_in_one`` (include/spmv.h:41-52).
     Values may be float32 or float64 (reference parity; ``size`` parameter in
-    spmv.h:49) or bfloat16 (TPU-native extension).
+    spmv.h:49) or bfloat16 (storage-only extension, f32 accumulation).
     """
 
     m: int

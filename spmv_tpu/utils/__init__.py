@@ -3,8 +3,6 @@
 from .cache import enable_compile_cache
 from .perfmodel import bytes_moved, roofline_gflops
 from .profiling import trace, Stopwatch
-from .backend import safe_default_backend, is_tpu, wait_for_backend
 
 __all__ = ["enable_compile_cache", "bytes_moved", "roofline_gflops",
-           "trace", "Stopwatch", "safe_default_backend", "is_tpu",
-           "wait_for_backend"]
+           "trace", "Stopwatch"]

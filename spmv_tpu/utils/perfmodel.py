@@ -17,22 +17,23 @@ FLOP_PER_NNZ = 2
 
 def bytes_moved(m: int, n: int, nnz: int, val_bytes: int = 4,
                 idx_bytes: int = 4, fmt: str = "csr",
-                pad_ratio: float = 1.0) -> int:
+                pad_ratio: float = 1.0,
+                stored_val_bytes: int | None = None) -> int:
     """Traffic model per SpMV execution.
 
     ``csr``: the reference's model (utils.h:11-14).
-    ``sell8w``: vals (f32) + int16 meta per padded slot + y write.
-    ``dia``: diagonal data + x per diagonal + y write (ndiags via pad_ratio
-    = ndiags·m/nnz).
+    ``dia``: the diagonal planes at their stored width (``stored_val_bytes``,
+    e.g. 2 for lossless bf16 diagonals; ``val_bytes`` by default) + x read
+    once + y written once.  ``pad_ratio`` = ndiags·m/nnz.  The shifted
+    slices of neighbouring diagonals reuse x through the cache, so x is
+    not counted per diagonal.
     """
     if fmt == "csr":
         return (m + 1 + nnz) * idx_bytes + (2 * nnz + m) * val_bytes
-    if fmt == "sell8w":
-        padded = int(nnz * pad_ratio)
-        return padded * (val_bytes + 2) + m * val_bytes
     if fmt == "dia":
         padded = int(nnz * pad_ratio)          # ndiags * m
-        return padded * val_bytes + padded * val_bytes + m * val_bytes
+        stored = val_bytes if stored_val_bytes is None else stored_val_bytes
+        return padded * stored + (n + m) * val_bytes
     raise ValueError(f"unknown fmt {fmt!r}")
 
 

@@ -1,5 +1,5 @@
 """Balanced2 is a distinct algorithm with the reference's demotion rule
-(parallel_balanced2_spmv.c:55-209, :87-90) — VERDICT round-1 item 7."""
+(parallel_balanced2_spmv.c:55-209, :87-90)."""
 
 import numpy as np
 
@@ -45,7 +45,7 @@ def test_demotes_to_balanced_without_megarows():
 
 
 def test_plans_differ_between_balanced_and_balanced2():
-    """A test that can tell the two methods apart (VERDICT weak #5)."""
+    """A test that can tell the two methods apart."""
     a = _megarow_matrix(seed=4)
     h2 = create_handle(a, method=Method.BALANCED2)
     hb = create_handle(a, method=Method.BALANCED)

@@ -1,8 +1,6 @@
-"""The driver records only the last 2000 chars of bench.py's stdout and
-parses the final line as JSON (round-4 VERDICT item 1: rounds 2-4 lost the
-front of a single giant line — parsed:null, 3 of 9 families dropped).
-These tests pin the fix: the compact line survives a 2000-char tail whole,
-parses, and carries every family with the pack/transfer split."""
+"""bench.py's last stdout line must parse whole from a 2000-char tail of
+its log, carry every family with the pack/transfer split, and name the
+device; the run must refuse to measure without a GPU."""
 import importlib.util
 import json
 import os
@@ -23,6 +21,11 @@ def _load_bench():
 @pytest.fixture(scope="module")
 def bench():
     return _load_bench()
+
+
+#: a device record as bench.main builds it on the card
+DEVICE = {"platform": "gpu", "kind": "NVIDIA H100 80GB HBM3", "count": 1,
+          "nvidia_smi": "NVIDIA H100 80GB HBM3, 700.00 W"}
 
 
 def _fake_configs(bench, fail=()):
@@ -49,7 +52,7 @@ def _fake_configs(bench, fail=()):
 def test_compact_line_survives_tail(bench, tmp_path, capsys):
     names, configs = _fake_configs(bench)
     head = configs["banded4m"]
-    line = bench.emit_records("banded4m", head, "tpu", names, configs,
+    line = bench.emit_records("banded4m", head, DEVICE, names, configs,
                               out_dir=str(tmp_path))
     # widest realistic field values still fit the driver's tail window
     assert len(line) < 1900
@@ -59,6 +62,7 @@ def test_compact_line_survives_tail(bench, tmp_path, capsys):
     assert set(rec["families"]) == set(names)   # ALL 9 families present
     for fam in rec["families"].values():
         assert {"g", "vr", "pk", "tx"} <= set(fam)
+    assert rec["device"] == DEVICE
     # stdout is exactly the one line
     out = capsys.readouterr().out.strip().splitlines()
     assert out == [line]
@@ -67,7 +71,7 @@ def test_compact_line_survives_tail(bench, tmp_path, capsys):
 def test_full_record_on_disk(bench, tmp_path):
     names, configs = _fake_configs(bench, fail=("webbase1m",))
     head = configs["banded4m"]
-    line = bench.emit_records("banded4m", head, "tpu", names, configs,
+    line = bench.emit_records("banded4m", head, DEVICE, names, configs,
                               out_dir=str(tmp_path))
     rec = json.loads(line)
     assert rec["families"]["webbase1m"] == {"e": 1}
@@ -82,8 +86,16 @@ def test_compact_even_with_errors(bench, tmp_path, capsys):
     names, configs = _fake_configs(
         bench, fail=tuple(n for n in bench.REFS if n != "banded4m"))
     head = configs["banded4m"]
-    line = bench.emit_records("banded4m", head, "tpu", names, configs,
+    line = bench.emit_records("banded4m", head, DEVICE, names, configs,
                               out_dir=str(tmp_path))
     capsys.readouterr()
     assert len(line) < 1900
     json.loads(line[-2000:])
+
+
+def test_bench_refuses_without_gpu(bench):
+    """On the CPU backend the benchmark raises before measuring anything."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    with pytest.raises(RuntimeError, match="GPU is required"):
+        bench.main()

@@ -1,9 +1,9 @@
-"""Distributed AUTO: one-call mesh handle picks the right tier.
+"""Distributed AUTO: one-call mesh handle picks the plan family.
 
 The reference's NUMA sample (numa.c:268-439) makes the user hand-pick
 both the partitioning and x placement; build_dist_auto extends the
-single-chip inspector's gates across the mesh (VERDICT round-3 item 5).
-Runs on the 8-device virtual CPU mesh; Pallas parts in interpret mode.
+single-device inspector's DIA gate across the mesh and falls back to the
+exact-nnz scan.  Runs on the 8-device virtual CPU mesh.
 """
 
 import numpy as np
@@ -25,36 +25,18 @@ def _check(a, plan, rtol=2e-5, atol=1e-6):
 
 def test_dist_auto_banded_routes_dia():
     a = generate.banded(6000, 6000, 3, dtype=np.float32, seed=1)
-    plan = build_dist_auto(a, make_mesh_1d(8), interpret=True)
+    plan = build_dist_auto(a, make_mesh_1d(8))
     assert plan.kind == "dia", plan.kind
     # banded ⇒ bounded column spread ⇒ the halo ring is the auto pick
     assert plan.x_mode == "halo", plan.x_mode
     _check(a, plan)
 
 
-def test_dist_auto_clustered_routes_8w():
-    a = generate.clustered(4000, 4000, 10, spread=300, dtype=np.float32,
+def test_dist_auto_clustered_routes_scan():
+    a = generate.clustered(4000, 4000, 10, spread=300, dtype=np.float64,
                            seed=2, exact=False)
-    plan = build_dist_auto(a, make_mesh_1d(4), interpret=True)
-    # round-5 cell_w recalibration flattened the slot tile price
-    # (12-13 ns at any nw vs dense 20), so clustered structure can now
-    # legitimately price onto the slot tier too
-    assert plan.kind in ("sell8w", "sell8d"), plan.kind
-    _check(a, plan)
-
-
-def test_dist_auto_uniform_routes_8d():
-    a = generate.random_uniform(6000, 6000, 8, dtype=np.float32, seed=3)
-    plan = build_dist_auto(a, make_mesh_1d(4), interpret=True)
-    assert plan.kind == "sell8d", plan.kind
-    _check(a, plan)
-
-
-def test_dist_auto_powerlaw_routes_hybrid():
-    a = generate.power_law(20_000, 20_000, 16 * 20_000, dtype=np.float32,
-                           seed=4)
-    plan = build_dist_auto(a, make_mesh_1d(4), interpret=True)
-    assert plan.kind in ("hybrid", "sell8d"), plan.kind
+    plan = build_dist_auto(a, make_mesh_1d(4))
+    assert plan.kind == "scan", plan.kind
     _check(a, plan)
 
 
@@ -63,54 +45,63 @@ def test_dist_auto_f64_uniform():
     rng = np.random.default_rng(6)
     a = CsrMatrix(a32.m, a32.n, a32.rowptr, a32.colidx,
                   rng.standard_normal(a32.nnz))
-    plan = build_dist_auto(a, make_mesh_1d(4), interpret=True)
-    assert plan.kind in ("sell8d", "sell8w", "hybrid"), plan.kind
-    # interpret mode collapses the EFTs (PERFNOTES caveat) — f32 bound
-    _check(a, plan, rtol=2e-5, atol=1e-6)
+    plan = build_dist_auto(a, make_mesh_1d(4))
+    assert plan.kind == "scan", plan.kind
+    _check(a, plan, rtol=1e-10, atol=1e-12)
 
 
 def test_dist_auto_ultra_sparse_routes_scan():
-    # pairs-floor-hopeless structure (~1.5 nnz per 1M row over random
-    # columns: every coarse (slice, bundle) pair holds ~1 nonzero) must
-    # skip the estimators and land on the exact-nnz scan
+    # ~1.5 nnz per 10 rows over random columns: no diagonal structure
     rng = np.random.default_rng(7)
     m = 1_000_000
     rows = np.sort(rng.integers(0, m, 150_000))
     cols = rng.integers(0, m, 150_000)
     a = CsrMatrix.from_coo(m, m, rows, cols,
                            rng.standard_normal(150_000).astype(np.float32))
-    plan = build_dist_auto(a, make_mesh_1d(4), interpret=True)
+    plan = build_dist_auto(a, make_mesh_1d(4))
     assert plan.kind == "scan", plan.kind
     # the scan's f32 global cumsum carries ~eps·sqrt(nnz) absolute error
     _check(a, plan, atol=2e-4)
 
 
-def test_dist_auto_large_n_routes_cols():
-    # n past the VMEM-x envelope with blocks that fit per device: the
-    # column-sharded resident tier (one psum) must win over the windowed
-    # row shard (round-5, VERDICT item 6)
-    a = generate.random_uniform(30_000, 2_500_000, 64, dtype=np.float32,
+def test_dist_auto_large_n_routes_scan_allgather():
+    # n past 1M columns: x is sharded and all-gathered inside the shard
+    a = generate.random_uniform(30_000, 2_500_000, 64, dtype=np.float64,
                                 seed=20)
-    plan = build_dist_auto(a, make_mesh_1d(8), interpret=True)
-    assert plan.kind == "sell8d_cols", plan.kind
+    plan = build_dist_auto(a, make_mesh_1d(8))
+    assert (plan.kind, plan.x_mode) == ("scan", "allgather")
     _check(a, plan)
 
 
-def test_dist_auto_webbase_routes_graph():
-    # webbase-shaped ultra-sparse graph: hub/heavy/light split on the
-    # mesh (single-chip analog: handle._build_graph_plan)
-    a = generate.webbase_like(60_000, 60_000, 190_000, dtype=np.float32,
+def test_dist_auto_webbase_routes_scan():
+    a = generate.webbase_like(60_000, 60_000, 190_000, dtype=np.float64,
                               seed=21)
-    plan = build_dist_auto(a, make_mesh_1d(4), interpret=True)
-    assert plan.kind in ("graph", "hybrid", "sell8d"), plan.kind
-    # the webbase structure must NOT fall to the scan
-    assert plan.kind != "scan"
+    plan = build_dist_auto(a, make_mesh_1d(4))
+    assert plan.kind == "scan", plan.kind
+    _check(a, plan)
+
+
+@pytest.mark.parametrize("family", ["uniform", "powerlaw", "clustered"])
+def test_dist_auto_8dev_picks_only_dia_or_scan(family):
+    """On the 8-device virtual mesh every non-banded family lands on the
+    scan and matches the oracle (f64, so the check sees the plan, not the
+    f32 prefix scan's rounding)."""
+    a = {
+        "uniform": lambda: generate.random_uniform(
+            6000, 6000, 8, seed=3, exact=False),
+        "powerlaw": lambda: generate.power_law(
+            20_000, 20_000, 16 * 20_000, seed=4, exact=False),
+        "clustered": lambda: generate.clustered(
+            8000, 8000, 12, spread=400, seed=8, exact=False),
+    }[family]()
+    plan = build_dist_auto(a, make_mesh_1d(8))
+    assert plan.kind in ("dia", "scan"), plan.kind
+    assert plan.kind == "scan", plan.kind
     _check(a, plan)
 
 
 def test_dist_auto_halo_survives_stragglers():
-    # round-4 VERDICT weak #6 / item 9: 0.1% long-range nonzeros must NOT
-    # flip an otherwise banded matrix to allgather — the quantile gate
+    # 0.1% long-range nonzeros must NOT flip an otherwise banded matrix to allgather — the quantile gate
     # keeps halo and routes the stragglers through the plan-level rest
     # stream against the full x
     a = generate.banded(6000, 6000, 3, dtype=np.float32, seed=9)
@@ -125,7 +116,7 @@ def test_dist_auto_halo_survives_stragglers():
     v_all = np.concatenate([np.asarray(a.vals),
                             rng.standard_normal(k).astype(np.float32)])
     a2 = CsrMatrix.from_coo(a.m, a.n, r_all, c_all, v_all)
-    plan = build_dist_auto(a2, make_mesh_1d(8), interpret=True)
+    plan = build_dist_auto(a2, make_mesh_1d(8))
     assert plan.x_mode.startswith("halo"), plan.x_mode
     assert plan.rest is not None and len(plan.rest[0]) == k
     _check(a2, plan)
@@ -133,8 +124,7 @@ def test_dist_auto_halo_survives_stragglers():
 
 @pytest.mark.parametrize("forced", ["replicated", "allgather"])
 def test_dist_auto_forced_x_mode(forced):
-    a = generate.random_uniform(4000, 4000, 8, dtype=np.float32, seed=8)
-    plan = build_dist_auto(a, make_mesh_1d(4), x_mode=forced,
-                           interpret=True)
+    a = generate.random_uniform(4000, 4000, 8, dtype=np.float64, seed=8)
+    plan = build_dist_auto(a, make_mesh_1d(4), x_mode=forced)
     assert plan.x_mode == forced
     _check(a, plan)

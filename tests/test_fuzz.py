@@ -50,65 +50,3 @@ def test_fuzz_all_methods(seed):
             y / scale, ref / scale, atol=1e-10,
             err_msg=f"seed={seed} m={a.m} n={a.n} nnz={a.nnz} "
                     f"method={h.method_name}")
-
-
-def test_reorder_moves_tier():
-    """A scrambled clustered matrix fails the Pallas window gate; RCM
-    reordering restores locality and the handle takes the fast path —
-    the reference's METIS-stage win, demonstrated end to end."""
-    from spmv_tpu.io import generate
-    from spmv_tpu.formats import reorder as rmod
-    from spmv_tpu.formats.sell8w import estimate_sell8w_tiles, WINDOW
-    a0 = generate.clustered(20_000, 20_000, 24, spread=256,
-                            dtype=np.float32, seed=8)
-    scramble = np.random.default_rng(1).permutation(20_000)
-    a, _ = rmod.reorder_symmetric(a0, scramble)
-    pad_before = estimate_sell8w_tiles(a) * WINDOW / a.nnz
-    assert pad_before > 3.0                       # gate fails scrambled
-    perm = rmod.rcm_order(a)
-    restored, _ = rmod.reorder_symmetric(a, perm)
-    pad_after = estimate_sell8w_tiles(restored) * WINDOW / restored.nnz
-    assert pad_after <= 3.0                       # gate passes reordered
-    # and the reordering handle still computes the right answer
-    h = create_handle(a, method=Method.SELL_C_SIGMA, reorder="rcm")
-    x = np.random.default_rng(2).standard_normal(a.n).astype(np.float32)
-    y = np.asarray(spmv(h, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(np.abs(ref).max(), 1.0)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6)
-
-
-@pytest.mark.parametrize("seed", range(10))
-def test_fuzz_sell8d(seed):
-    """Random structures × bundle widths through the slot-mode pack +
-    kernel (interpret mode) — covers empty rows, mega-rows, m≠n, duplicate
-    columns within rows, tiny matrices."""
-    from spmv_tpu.formats.sell8d import pack_sell8d
-    from spmv_tpu.ops.pallas_sell import build_sell8d_fn
-
-    rng = np.random.default_rng(7000 + seed)
-    m = int(rng.integers(1, 5000))
-    n = int(rng.integers(1, 5000))
-    nnz = int(rng.integers(1, min(m * n, 20_000) + 1))
-    rows = rng.integers(0, m, size=nnz)
-    cols = rng.integers(0, n, size=nnz)
-    vals = rng.standard_normal(nnz)
-    a = CsrMatrix.from_coo(m, n, rows.astype(np.int32),
-                           cols.astype(np.int32), vals.astype(np.float32))
-    if a.nnz == 0:
-        return
-    x = rng.standard_normal(a.n).astype(np.float32)
-    ref = spmv_golden(a, x)
-    scale = max(np.abs(ref).max(), 1.0)
-    nw = int(2 ** rng.integers(0, 4))
-    try:
-        p, rest = pack_sell8d(a, max_pad_ratio=1e9, max_spill=1.0, nw=nw)
-    except ValueError:
-        return                      # degenerate pack — gates may fire
-    fn = build_sell8d_fn(p, interpret=True)
-    y = np.asarray(fn(x)).astype(np.float64)
-    if rest is not None:
-        np.add.at(y, rest[0], rest[2].astype(np.float64) * x[rest[1]])
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-5,
-                               err_msg=f"seed {seed} nw={nw} "
-                                       f"m={m} n={n} nnz={a.nnz}")

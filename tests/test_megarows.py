@@ -1,58 +1,16 @@
-"""Mega-row virtual splitting (sell8w.split_megarows) + handle integration.
+"""Mega-row matrices through the AUTO handle.
 
 The reference handles mega-rows with Balanced2's row-redistribution +
-intra-row split (parallel_balanced2_spmv.c:115-198); the TPU rebuild
-re-expresses that at the format level: heavy rows become column-contiguous
-virtual sub-rows appended after row m, folded back by a tiny scatter-add.
+intra-row split (parallel_balanced2_spmv.c:115-198); here AUTO routes them
+to the exact-nnz scan, whose tiles split any row.
 """
 
 import numpy as np
 import pytest
 
 from spmv_tpu import Method, create_handle, spmv
-from spmv_tpu.formats.sell8w import split_megarows
 from spmv_tpu.io import generate
 from spmv_tpu.oracle import spmv_golden
-from spmv_tpu.types import CsrMatrix
-
-
-def _reconstruct(a_ext, sub_rows, m):
-    """Dense reconstruction folding sub-rows back into origin rows."""
-    d = np.zeros((m, a_ext.n), dtype=np.float64)
-    for r in range(a_ext.m):
-        dest = r if r < m else int(sub_rows[r - m])
-        for k in range(a_ext.rowptr[r], a_ext.rowptr[r + 1]):
-            d[dest, a_ext.colidx[k]] += a_ext.vals[k]
-    return d
-
-
-def test_split_megarows_exact():
-    rng = np.random.default_rng(0)
-    m = n = 600
-    lens = rng.integers(0, 12, m)
-    lens[7] = 400          # mega-row
-    lens[250] = 590        # near-full mega-row
-    rowptr = np.zeros(m + 1, np.int64)
-    np.cumsum(lens, out=rowptr[1:])
-    colidx = np.concatenate(
-        [np.sort(rng.choice(n, L, replace=False)) for L in lens])
-    vals = rng.standard_normal(int(lens.sum())).astype(np.float32)
-    a = CsrMatrix(m, n, rowptr, colidx, vals)
-
-    a_ext, sub_rows = split_megarows(a, max_len=64)
-    assert sub_rows is not None
-    assert a_ext.nnz == a.nnz
-    assert (np.diff(a_ext.rowptr) <= 64).all()
-    dense = np.zeros((m, n), np.float64)
-    rows = np.repeat(np.arange(m), lens)
-    dense[rows, a.colidx] = a.vals
-    np.testing.assert_allclose(_reconstruct(a_ext, sub_rows, m), dense)
-
-
-def test_split_megarows_noop_when_light():
-    a = generate.random_uniform(500, 500, 5, dtype=np.float32, seed=1)
-    a2, sub = split_megarows(a, max_len=64)
-    assert sub is None and a2 is a
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

@@ -25,33 +25,45 @@ METHODS = [
 ]
 
 
+#: the ``matrices`` fixture's keys, fixed here so that parametrization never
+#: depends on anything computed at import
+ZOO_NAMES = ["banded", "banded_rect", "uniform", "powerlaw", "empty_rows",
+             "single_megarow", "tiny", "one_row", "one_col"]
+
+
+def test_zoo_names_match_fixture(matrices):
+    assert sorted(matrices) == sorted(ZOO_NAMES)
+
+
+@pytest.mark.parametrize("name", ZOO_NAMES)
 @pytest.mark.parametrize("method", METHODS)
-def test_method_exact_arithmetic(matrices, method):
+def test_method_exact_arithmetic(matrices, method, name):
     """Dyadic values + x=1 → device f64 result must be bit-exact vs oracle
     (the reference's reproducibility trick, test_spmv.c:199-202)."""
-    for name, a in matrices.items():
-        h = spmv_tpu.create_handle(a, method=method)
-        x = generate.make_x(a.n, dtype=np.float64, kind="ones")
-        y = np.asarray(spmv_tpu.spmv(h, x))
-        g = spmv_golden(a, x)
-        np.testing.assert_array_equal(y, g, err_msg=f"{name}/{method.name}")
+    a = matrices[name]
+    h = spmv_tpu.create_handle(a, method=method)
+    x = generate.make_x(a.n, dtype=np.float64, kind="ones")
+    y = np.asarray(spmv_tpu.spmv(h, x))
+    g = spmv_golden(a, x)
+    np.testing.assert_array_equal(y, g, err_msg=f"{name}/{method.name}")
 
 
+@pytest.mark.parametrize("name", ZOO_NAMES)
 @pytest.mark.parametrize("method", METHODS)
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-def test_method_random_values(matrices, method, dtype):
-    rng = np.random.default_rng(0)
-    for name, a in matrices.items():
-        a = spmv_tpu.CsrMatrix(a.m, a.n, a.rowptr, a.colidx,
-                               rng.standard_normal(a.nnz).astype(dtype))
-        h = spmv_tpu.create_handle(a, method=method)
-        x = rng.standard_normal(a.n).astype(dtype)
-        y = np.asarray(spmv_tpu.spmv(h, x))
-        g = spmv_golden(a, x.astype(np.float64))
-        tol = 1e-4 if dtype == np.float32 else 1e-10
-        scale = max(np.abs(g).max(), 1.0)
-        np.testing.assert_allclose(y, g, rtol=0, atol=tol * scale,
-                                   err_msg=f"{name}/{method.name}/{dtype}")
+def test_method_random_values(matrices, method, dtype, name):
+    a = matrices[name]
+    rng = np.random.default_rng(ZOO_NAMES.index(name))
+    a = spmv_tpu.CsrMatrix(a.m, a.n, a.rowptr, a.colidx,
+                           rng.standard_normal(a.nnz).astype(dtype))
+    h = spmv_tpu.create_handle(a, method=method)
+    x = rng.standard_normal(a.n).astype(dtype)
+    y = np.asarray(spmv_tpu.spmv(h, x))
+    g = spmv_golden(a, x.astype(np.float64))
+    tol = 1e-4 if dtype == np.float32 else 1e-10
+    scale = max(np.abs(g).max(), 1.0)
+    np.testing.assert_allclose(y, g, rtol=0, atol=tol * scale,
+                               err_msg=f"{name}/{method.name}/{dtype}")
 
 
 def test_handle_repeated_execution(matrices):
@@ -206,15 +218,6 @@ def test_dia_lossless_bf16_gate():
                                   spmv_golden(a, x).astype(np.float32))
 
 
-def test_sell8w_estimate_matches_pack():
-    import numpy as np
-    from spmv_tpu.io import generate
-    from spmv_tpu.formats.sell8w import estimate_sell8w_tiles, pack_sell8w
-    a = generate.clustered(3000, 3000, 24, spread=300, dtype=np.float32,
-                           seed=4)
-    assert estimate_sell8w_tiles(a) <= pack_sell8w(a).ntiles
-
-
 def test_bcsr_method():
     import numpy as np
     from spmv_tpu.io import generate
@@ -253,18 +256,46 @@ def test_bcsr_profile_and_rect():
     np.testing.assert_allclose(dense, a.to_dense().astype(np.float32))
 
 
-def test_parallel_can_use_pallas_gate():
-    # On CPU the gate must NOT fire (backend check); semantics unchanged
-    import numpy as np
-    from spmv_tpu.io import generate
-    from spmv_tpu import create_handle, spmv, Method
-    from spmv_tpu.oracle import spmv_golden
-    a = generate.clustered(1000, 1000, 16, spread=200,
-                           dtype=np.float32, seed=2)
-    h = create_handle(a, method=Method.PARALLEL)
-    assert "sell8w" not in h.plan or True   # backend-dependent plan choice
-    x = np.random.default_rng(0).standard_normal(a.n).astype(np.float32)
-    y = np.asarray(spmv(h, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(abs(ref).max(), 1)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6)
+def test_bcsr_einsum_runs_at_highest_precision():
+    """A default-precision f32 contraction may run in TF32 on a GPU; the
+    BCSR plan must ask for HIGHEST."""
+    import jax
+    import jax.numpy as jnp
+    from spmv_tpu.ops import xla_csr
+    blocks = jnp.ones((2, 128, 128), jnp.float32)
+    rows = jnp.array([0, 1], jnp.int32)
+    cols = jnp.array([0, 0], jnp.int32)
+    x = jnp.ones(128, jnp.float32)
+    jaxpr = jax.make_jaxpr(lambda b, x: xla_csr.bcsr_spmv(
+        b, rows, cols, x, m=256, nblock_rows=2))(blocks, x)
+    dots = [e for e in jaxpr.jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots, jaxpr
+    for e in dots:
+        assert "HIGHEST" in str(e.params["precision"]), e.params
+
+
+@pytest.mark.parametrize("kind,expected", [
+    ("banded", Method.DIA),
+    ("blocky", Method.BCSR),
+    ("uniform", Method.SELL_C_SIGMA),
+    ("powerlaw", Method.BALANCED),
+])
+def test_auto_routes_by_structure(kind, expected):
+    """AUTO keeps only device-neutral features: diagonal fill, block fill,
+    SELL padding, else the exact-nnz scan."""
+    a = {
+        "banded": lambda: generate.banded(20_000, 20_000, 3, seed=1),
+        "blocky": lambda: generate.block_random(4, 4, blocks_per_row=2,
+                                                fill=0.5, seed=3),
+        "uniform": lambda: generate.random_uniform(20_000, 20_000, 40,
+                                                   seed=4),
+        "powerlaw": lambda: generate.power_law(20_000, 20_000, 400_000,
+                                               seed=5),
+    }[kind]()
+    assert spmv_tpu.choose_method(a) == expected
+    assert spmv_tpu.choose_method(a, spmv_tpu.featurize(a)) == expected
+    h = spmv_tpu.create_handle(a, method=Method.AUTO)
+    assert h.method == expected
+    x = np.random.default_rng(6).standard_normal(a.n)
+    np.testing.assert_allclose(np.asarray(spmv_tpu.spmv(h, x)),
+                               spmv_golden(a, x), rtol=1e-10, atol=1e-10)

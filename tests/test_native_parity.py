@@ -1,10 +1,10 @@
 """Native (C++) vs pure-Python parity — both paths must produce identical
-results (VERDICT round-1 item 6; CLAUDE.md's standing promise).
+results.
 
-The native packer/parser (native/spmv_native.cpp) mirrors the Python
-implementations; these tests run BOTH paths on the same inputs and compare
-outputs, so CI exercises the Python fallbacks even on machines where the
-native .so builds.
+The native MatrixMarket parser (native/spmv_native.cpp) mirrors the Python
+one; these tests run BOTH paths on the same inputs and compare outputs, so
+CI exercises the Python fallback even on machines where the native .so
+builds.
 """
 
 import numpy as np
@@ -12,52 +12,10 @@ import pytest
 
 from spmv_tpu.io import generate
 from spmv_tpu.native import native_available
-from spmv_tpu.types import CsrMatrix
-
-
-def _reconstruct_sell8w(p):
-    """Densify a Sell8W packing back to (m, n) for equivalence checks.
-
-    Mirrors the kernel's two-stage read (ops/pallas_sell.py): slot (i, j)
-    names residue r = meta[i,j]&127; the staging sub-row for that residue is
-    per-(sublane, residue): s = meta[i, r] >> 7.
-    """
-    from spmv_tpu.formats.sell8w import LANES, SUB, WINDOW
-    out = np.zeros((p.m, p.n), dtype=np.float64)
-    for t in range(p.ntiles):
-        w = int(p.window_ids[t])
-        sl = int(p.slice_ids[t])
-        meta = p.meta[t].astype(np.int32)
-        for i in range(SUB):
-            for j in range(LANES):
-                row = sl * LANES + j
-                if p.vals[t, i, j] != 0 and row < p.m:
-                    r = int(meta[i, j]) & 127
-                    s = (int(meta[i, r]) >> 7) & 7
-                    out[row, w * WINDOW + s * LANES + r] += p.vals[t, i, j]
-    return out
 
 
 @pytest.mark.skipif(not native_available(), reason="native lib unavailable")
 class TestNativeParity:
-    def test_sell8w_pack_parity(self):
-        from spmv_tpu.formats.sell8w import pack_sell8w
-        a = generate.clustered(600, 600, 12, spread=200,
-                               dtype=np.float32, seed=3)
-        pn = pack_sell8w(a, use_native=True)
-        pp = pack_sell8w(a, use_native=False)
-        # Both packings must reconstruct the same matrix...
-        dense = a.to_dense().astype(np.float64)
-        np.testing.assert_allclose(_reconstruct_sell8w(pn), dense, rtol=1e-6)
-        np.testing.assert_allclose(_reconstruct_sell8w(pp), dense, rtol=1e-6)
-        # ...and the native greedy must be behavior-identical to the Python
-        # greedy (same tile stream bit for bit).
-        assert pn.ntiles == pp.ntiles
-        np.testing.assert_array_equal(pn.window_ids, pp.window_ids)
-        np.testing.assert_array_equal(pn.slice_ids, pp.slice_ids)
-        np.testing.assert_array_equal(pn.meta, pp.meta)
-        np.testing.assert_array_equal(pn.vals, pp.vals)
-
     def test_mtx_parse_parity(self, tmp_path):
         from spmv_tpu.io.mmio import read_mtx, write_mtx
         a = generate.random_uniform(40, 30, 5, dtype=np.float64, seed=11)
@@ -80,109 +38,3 @@ class TestNativeParity:
         np.testing.assert_array_equal(an.rowptr, ap.rowptr)
         np.testing.assert_array_equal(an.colidx, ap.colidx)
         np.testing.assert_allclose(an.vals, ap.vals)
-
-    def test_coo2_pipeline_parity(self, monkeypatch):
-        """fused C++ pipeline == staged C++ placer == pure python."""
-        from spmv_tpu.formats import coo2 as coo2_mod
-        import spmv_tpu.native as native_mod
-        a = generate.random_uniform(300, 260, 8, dtype=np.float32, seed=7)
-        p_fused = coo2_mod.pack_coo2(a)
-        monkeypatch.setattr(native_mod, "coo2_pack_all_native",
-                            lambda *args: None)
-        p_staged = coo2_mod.pack_coo2(a)
-        monkeypatch.setattr(native_mod, "coo2_place_native",
-                            lambda *args: None)
-        p_python = coo2_mod.pack_coo2(a)
-        for pn, pp in [(p_fused, p_staged), (p_staged, p_python)]:
-            assert pn.ntiles == pp.ntiles
-            np.testing.assert_array_equal(pn.window_ids, pp.window_ids)
-            np.testing.assert_array_equal(pn.meta, pp.meta)
-            np.testing.assert_array_equal(pn.vals, pp.vals)
-            np.testing.assert_array_equal(pn.reduce_plan.meta,
-                                          pp.reduce_plan.meta)
-            np.testing.assert_array_equal(pn.reduce_plan.window_ids,
-                                          pp.reduce_plan.window_ids)
-
-
-def test_python_pack_used_when_native_off():
-    """The pure-Python greedy is a real fallback (not native-only)."""
-    from spmv_tpu.formats.sell8w import pack_sell8w
-    a = generate.banded(300, 300, 2, dtype=np.float32, seed=1)
-    p = pack_sell8w(a, use_native=False)
-    dense = a.to_dense().astype(np.float64)
-    np.testing.assert_allclose(_reconstruct_sell8w(p), dense, rtol=1e-6)
-
-
-@pytest.mark.parametrize("nw", [1, 4])
-def test_sell8d_native_reconstruction_parity(nw):
-    """Native greedy and Python balanced-wrap packers place entries
-    DIFFERENTLY (both valid); parity = identical reconstruction.  Skipped
-    when the native library is unavailable (the fallback path is then the
-    one under test everywhere else)."""
-    from spmv_tpu.native import native_available
-    if not native_available():
-        pytest.skip("native library unavailable")
-    import jax
-    jax.config.update("jax_platforms", "cpu")
-    from spmv_tpu.formats.sell8d import pack_sell8d
-    from spmv_tpu.io import generate
-    from spmv_tpu.oracle import spmv_golden
-    from spmv_tpu.ops.pallas_sell import build_sell8d_fn
-
-    a = generate.random_uniform(6000, 6000, 7, dtype=np.float32, seed=12)
-    x = np.random.default_rng(4).standard_normal(a.n).astype(np.float32)
-    ref = spmv_golden(a, x)
-    scale = max(np.abs(ref).max(), 1.0)
-    for use_native in (True, False):
-        p, rest = pack_sell8d(a, max_pad_ratio=80.0, nw=nw,
-                              use_native=use_native)
-        fn = build_sell8d_fn(p, interpret=True)
-        y = np.asarray(fn(x)).astype(np.float64)
-        if rest is not None:
-            np.add.at(y, rest[0], rest[2].astype(np.float64) * x[rest[1]])
-        np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6,
-                                   err_msg=f"native={use_native} nw={nw}")
-
-
-def test_sell8d_native_not_worse():
-    """The greedy native pack must not blow up the tile count vs Python."""
-    from spmv_tpu.native import native_available
-    if not native_available():
-        pytest.skip("native library unavailable")
-    from spmv_tpu.formats.sell8d import pack_sell8d
-    from spmv_tpu.io import generate
-    a = generate.random_uniform(9000, 9000, 8, dtype=np.float32, seed=3)
-    pn, _ = pack_sell8d(a, max_pad_ratio=80.0, nw=4, use_native=True)
-    pp, _ = pack_sell8d(a, max_pad_ratio=80.0, nw=4, use_native=False)
-    assert pn.ntiles <= pp.ntiles * 1.1
-
-
-def test_sell8d_native_cell_w_reconstruction():
-    """cell_w layout: native and Python packs both reconstruct exactly
-    (placement may differ; reconstruction is the parity standard)."""
-    from spmv_tpu.native import native_available
-    if not native_available():
-        pytest.skip("native library unavailable")
-    from spmv_tpu.formats.sell8d import pack_sell8d
-    from spmv_tpu.io import generate
-    from spmv_tpu.oracle import spmv_golden
-    from spmv_tpu.ops.pallas_sell import build_sell8d_fn
-
-    a = generate.random_uniform(6000, 6000, 7, dtype=np.float32, seed=13)
-    x = np.random.default_rng(5).standard_normal(a.n).astype(np.float32)
-    ref = spmv_golden(a, x)
-    scale = max(np.abs(ref).max(), 1.0)
-    tiles = {}
-    for use_native in (True, False):
-        p, rest = pack_sell8d(a, max_pad_ratio=80.0, nw=8, cell_w=True,
-                              use_native=use_native)
-        assert p.cell_w
-        fn = build_sell8d_fn(p, interpret=True)
-        y = np.asarray(fn(x)).astype(np.float64)
-        if rest is not None:
-            np.add.at(y, rest[0], rest[2].astype(np.float64) * x[rest[1]])
-        np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6,
-                                   err_msg=f"native={use_native} cell_w")
-        tiles[use_native] = p.ntiles
-    # the greedy native pack must stay in the same tile-count ballpark
-    assert tiles[True] <= tiles[False] * 1.15

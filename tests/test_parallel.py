@@ -1,4 +1,4 @@
-"""Multi-chip SpMV on the 8-device virtual CPU mesh (SURVEY.md §4)."""
+"""Multi-device SpMV on the 8-device virtual CPU mesh (SURVEY.md §4)."""
 
 import numpy as np
 import pytest
@@ -59,35 +59,6 @@ def test_dist_dia(matrices, x_mode):
                                    atol=1e-12, err_msg=f"{name} {x_mode}")
 
 
-@pytest.mark.parametrize("x_mode", ["replicated", "allgather", "halo"])
-def test_dist_sell8w(x_mode):
-    from spmv_tpu.parallel import build_dist_sell8w_plan, dist_sell8w_spmv
-    a = generate.clustered(1500, 1500, 20, spread=200,
-                           dtype=np.float32, seed=6)
-    mesh = make_mesh_1d(4)
-    plan = build_dist_sell8w_plan(a, mesh, x_mode=x_mode, interpret=True)
-    x = generate.make_x(a.n, np.float32, kind="normal", seed=5)
-    y = np.asarray(dist_sell8w_spmv(plan, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(abs(ref).max(), 1)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6,
-                               err_msg=x_mode)
-
-
-def test_dist_sell8w_uneven_rows():
-    from spmv_tpu.parallel import build_dist_sell8w_plan, dist_sell8w_spmv
-    # m not divisible by ndev*128; last shard mostly padding
-    a = generate.clustered(777, 900, 10, spread=150,
-                           dtype=np.float32, seed=7)
-    mesh = make_mesh_1d(8)
-    plan = build_dist_sell8w_plan(a, mesh, interpret=True)
-    x = generate.make_x(a.n, np.float32, kind="normal", seed=3)
-    y = np.asarray(dist_sell8w_spmv(plan, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(abs(ref).max(), 1)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6)
-
-
 def test_dist_dia_halo_rejects():
     from spmv_tpu.parallel import build_dist_dia_plan
     import pytest as _pytest
@@ -122,29 +93,6 @@ def test_dist_fuzz(seed):
         err_msg=f"seed={seed} m={m} n={n} nnz={a.nnz} ndev={ndev} {x_mode}")
 
 
-def test_dist_sell8w_allgather_indivisible_n():
-    # n % ndev != 0 regression (gathered x longer than n crashed _run)
-    from spmv_tpu.parallel import build_dist_sell8w_plan, dist_sell8w_spmv
-    a = generate.clustered(900, 900, 12, spread=120,
-                           dtype=np.float32, seed=9)
-    plan = build_dist_sell8w_plan(a, make_mesh_1d(8), x_mode="allgather",
-                                  interpret=True)
-    x = generate.make_x(a.n, np.float32, kind="normal", seed=1)
-    y = np.asarray(dist_sell8w_spmv(plan, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(abs(ref).max(), 1)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6)
-
-
-def test_dist_sell8w_rejects_unsupported_dtype():
-    # f32 and f64 (double-float) are the kernel dtypes; anything else must
-    # be cast explicitly by the caller
-    from spmv_tpu.parallel import build_dist_sell8w_plan
-    a = generate.clustered(500, 500, 10, spread=100, dtype=np.float16)
-    with pytest.raises(ValueError, match="float32 or double-float"):
-        build_dist_sell8w_plan(a, make_mesh_1d(4))
-
-
 @pytest.mark.parametrize("halo", [1, 2])
 def test_dist_general_halo(halo):
     # clustered square matrix: columns within +-halo neighbor blocks
@@ -162,7 +110,7 @@ def test_dist_general_halo_cyclic_wraps():
     # cyclic band: row 0 references the last columns and vice versa.  The
     # ppermute rings are circular, so the required depth is 1 via
     # wrap-around — a non-wrapping block distance would claim ndev-1 and
-    # refuse the build (ADVICE round 2).
+    # refuse the build.
     m = 1024
     base = generate.banded(m, m, 2, seed=4)
     rows = np.concatenate([np.repeat(np.arange(m, dtype=np.int64),
@@ -185,128 +133,3 @@ def test_dist_general_halo_rejects_scatter():
     a = generate.random_uniform(512, 512, 6, seed=3)   # scattered columns
     with pytest.raises(ValueError, match="halo depth"):
         build_dist_plan(a, make_mesh_1d(8), x_mode="halo")
-
-
-@pytest.mark.parametrize("x_mode", ["replicated", "allgather"])
-def test_dist_sell8w_f64(x_mode):
-    # distributed double-float (VERDICT round-2 item 5): the dist tiers
-    # run the reference's primary dtype.  Interpret mode simplifies the
-    # EFTs (PERFNOTES caveat) — assert f32-level accuracy + f64 dtype.
-    from spmv_tpu.parallel import build_dist_sell8w_plan, dist_sell8w_spmv
-    from spmv_tpu.types import CsrMatrix
-    a32 = generate.clustered(2000, 2000, 10, spread=120, dtype=np.float32,
-                             seed=12)
-    rng = np.random.default_rng(5)
-    a = CsrMatrix(a32.m, a32.n, a32.rowptr, a32.colidx,
-                  rng.standard_normal(a32.nnz))
-    mesh = make_mesh_1d(4)
-    plan = build_dist_sell8w_plan(a, mesh, x_mode=x_mode, interpret=True)
-    assert plan.vals_lo is not None
-    x = rng.standard_normal(a.n)
-    y = np.asarray(dist_sell8w_spmv(plan, x))
-    assert y.dtype == np.float64
-    g = spmv_golden(a, x)
-    assert np.abs(y - g).max() / np.abs(g).max() < 2e-5
-
-
-@pytest.mark.parametrize("x_mode", ["replicated", "allgather", "halo"])
-def test_dist_sell8d_f64(x_mode):
-    from spmv_tpu.parallel import build_dist_sell8d_plan, dist_sell8d_spmv
-    from spmv_tpu.types import CsrMatrix
-    a32 = generate.random_uniform(9000, 9000, 8, dtype=np.float32, seed=3)
-    rng = np.random.default_rng(6)
-    a = CsrMatrix(a32.m, a32.n, a32.rowptr, a32.colidx,
-                  rng.standard_normal(a32.nnz))     # >64 distinct → df
-    mesh = make_mesh_1d(4)
-    # nw pinned at 8: the halo variant relies on 8192-row-aligned shard
-    # blocks swallowing this random matrix's column spread (the round-4
-    # df16 cost tables let the estimator pick narrower bundles, which
-    # shrinks the blocks past a depth-1 ring)
-    plan = build_dist_sell8d_plan(a, mesh, x_mode=x_mode, nw=8,
-                                  max_pad_ratio=200.0, interpret=True)
-    # round 5: dist f64 defaults to df16 (int16 lo plane, the single-chip
-    # default) when the values fit its range contract; full-f32 "df"
-    # remains the out-of-range fallback
-    assert plan.value_mode in ("df", "df16") and plan.vals_lo is not None
-    x = rng.standard_normal(a.n)
-    y = np.asarray(dist_sell8d_spmv(plan, x))
-    assert y.dtype == np.float64
-    g = spmv_golden(a, x)
-    assert np.abs(y - g).max() / np.abs(g).max() < 2e-5
-
-
-def test_dist_sell8d_f64_shared_palette():
-    # dyadic f64 values (the reference's exact-value fixture) fit the
-    # shared palette → palette_df mode, zero value streams
-    from spmv_tpu.parallel import build_dist_sell8d_plan, dist_sell8d_spmv
-    a = generate.random_uniform(6000, 6000, 8, dtype=np.float64, seed=9)
-    mesh = make_mesh_1d(4)
-    plan = build_dist_sell8d_plan(a, mesh, max_pad_ratio=200.0,
-                                  interpret=True)
-    assert plan.value_mode == "palette_df"
-    x = np.random.default_rng(2).standard_normal(a.n)
-    y = np.asarray(dist_sell8d_spmv(plan, x))
-    g = spmv_golden(a, x)
-    assert np.abs(y - g).max() / np.abs(g).max() < 2e-5
-
-
-@pytest.mark.parametrize("x_mode", ["replicated", "allgather", "halo"])
-def test_dist_sell8d(x_mode):
-    # scattered structure over the mesh: the slot-mode tier distributed
-    from spmv_tpu.parallel import build_dist_sell8d_plan, dist_sell8d_spmv
-    a = generate.random_uniform(9000, 9000, 8, dtype=np.float32, seed=3)
-    mesh = make_mesh_1d(4)
-    if x_mode == "halo":
-        # uniform scatter touches every block — halo must refuse (nw=1
-        # keeps blocks small enough that the ring cannot cover them; wide
-        # bundles legitimately shrink the block count below the ring)
-        with pytest.raises(ValueError):
-            build_dist_sell8d_plan(a, mesh, x_mode=x_mode, nw=1,
-                                   interpret=True)
-        return
-    plan = build_dist_sell8d_plan(a, mesh, x_mode=x_mode, interpret=True)
-    x = generate.make_x(a.n, np.float32, kind="normal", seed=5)
-    y = np.asarray(dist_sell8d_spmv(plan, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(abs(ref).max(), 1)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6,
-                               err_msg=x_mode)
-
-
-def test_dist_sell8d_halo_banded_scatter():
-    # banded-support scatter (within-band random): halo rings apply
-    from spmv_tpu.parallel import build_dist_sell8d_plan, dist_sell8d_spmv
-    rng = np.random.default_rng(8)
-    m = n = 8192
-    rows = np.repeat(np.arange(m), 4)
-    cols = np.clip(rows + rng.integers(-900, 901, len(rows)), 0, n - 1)
-    order = np.lexsort((cols, rows))
-    rows, cols = rows[order], cols[order]
-    rowptr = np.zeros(m + 1, np.int64)
-    np.add.at(rowptr, rows + 1, 1)
-    np.cumsum(rowptr, out=rowptr)
-    vals = rng.standard_normal(len(rows)).astype(np.float32)
-    from spmv_tpu.types import CsrMatrix
-    a = CsrMatrix(m, n, rowptr, cols.astype(np.int64), vals)
-    mesh = make_mesh_1d(8)
-    plan = build_dist_sell8d_plan(a, mesh, x_mode="halo", interpret=True)
-    x = generate.make_x(a.n, np.float32, kind="normal", seed=2)
-    y = np.asarray(dist_sell8d_spmv(plan, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(abs(ref).max(), 1)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6)
-
-
-def test_dist_sell8d_uneven_and_empty_shards():
-    from spmv_tpu.parallel import build_dist_sell8d_plan, dist_sell8d_spmv
-    # m < ndev * 1024: several shards entirely empty; their output rows
-    # must come back zero-initialized, not garbage
-    a = generate.random_uniform(1700, 2600, 5, dtype=np.float32, seed=4)
-    mesh = make_mesh_1d(8)
-    plan = build_dist_sell8d_plan(a, mesh, x_mode="replicated",
-                                  interpret=True)
-    x = generate.make_x(a.n, np.float32, kind="normal", seed=1)
-    y = np.asarray(dist_sell8d_spmv(plan, x))
-    ref = spmv_golden(a.astype(np.float64), x.astype(np.float64))
-    scale = max(abs(ref).max(), 1)
-    np.testing.assert_allclose(y / scale, ref / scale, atol=3e-6)
